@@ -1,0 +1,251 @@
+"""The SPAIR model: inference orders, forward pass and loss (counterpart of
+``spair_pytorch_tpu/models/spair.py``).
+
+The lateral-context inference visits groups of mutually independent cells
+(``inference_schedule``): every cell at once ('independent'), one cell at a
+time in raster order ('raster'), the 31 fronts of constant d = 2h + w on an
+11x11 grid ('wavefront', the same function as raster), or whole rows
+('rowscan', a relaxed context). Context lives on a halo board, a flat
+(gh + 2n) x (gw + 2n) + 1 grid of context vectors initialized with the edge
+element; each front reads its neighbours' slots and writes its own, and a
+trash slot absorbs the writes of padded lanes. Here the scan over fronts is
+a Python loop.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from spair_pytorch_tpu_torch.config import SpairConfig
+from spair_pytorch_tpu_torch.models.kl import count_prior_kl, independent_kl
+from spair_pytorch_tpu_torch.models.latents import (cell_step, geometry,
+                                                    init_params, sample_noise)
+from spair_pytorch_tpu_torch.models.render import render
+from spair_pytorch_tpu_torch.ops.math import binary_cross_entropy_sum, safe_log
+from spair_pytorch_tpu_torch.ops.schedules import exponential_decay
+
+__all__ = ["init_params", "forward", "infer_latents", "loss_and_metrics",
+           "geometry", "inference_schedule", "neighbor_offsets"]
+
+
+def neighbor_offsets(n_lookback: int = 1):
+    """Already-visited cells of the lookback window, row-major; for n = 1
+    [(-1, -1), (-1, 0), (-1, 1), (0, -1)]."""
+    n = n_lookback
+    offs = [(dh, dw) for dh in range(-n, 1) for dw in range(-n, n + 1)]
+    return tuple(offs[:-(n + 1)])
+
+
+def inference_schedule(mode: str, gh: int, gw: int, n_lookback: int = 1):
+    """Static schedule: fronts of mutually independent cells, as numpy.
+
+    cell_idx (S, K) raster index per lane (0 for padded lanes); cell_hw
+    (S, K, 2); mask (S, K); nbr_idx (S, K, n_neighbors) halo-board read
+    slots; write_idx (S, K) write slot (the trash slot for padded lanes);
+    perm (N,) lane position s*K + k of each raster cell. The wavefront index
+    d = (n_lookback + 1) h + w strictly decreases along every neighbour
+    offset, so equal-d cells are independent."""
+    offsets = neighbor_offsets(n_lookback)
+    if mode == "raster":
+        fronts: List[List[Tuple[int, int]]] = [
+            [(h, w)] for h in range(gh) for w in range(gw)]
+    elif mode == "wavefront":
+        by_d: Dict[int, List[Tuple[int, int]]] = {}
+        for h in range(gh):
+            for w in range(gw):
+                by_d.setdefault((n_lookback + 1) * h + w, []).append((h, w))
+        fronts = [by_d[d] for d in sorted(by_d)]
+    elif mode == "rowscan":
+        # relaxed: same-row west neighbours read the edge element
+        fronts = [[(h, w) for w in range(gw)] for h in range(gh)]
+    else:
+        raise ValueError(f"unknown scan mode {mode!r}")
+
+    s = len(fronts)
+    k = max(len(f) for f in fronts)
+    halo = n_lookback
+    pw = gw + 2 * halo
+    board_size = (gh + 2 * halo) * pw
+    trash = board_size
+
+    cell_idx = np.zeros((s, k), np.int64)
+    cell_hw = np.zeros((s, k, 2), np.int64)
+    mask = np.zeros((s, k), bool)
+    nbr_idx = np.zeros((s, k, len(offsets)), np.int64)
+    write_idx = np.full((s, k), trash, np.int64)
+    perm = np.zeros(gh * gw, np.int64)
+    for si, front in enumerate(fronts):
+        for ki, (h, w) in enumerate(front):
+            cell_idx[si, ki] = h * gw + w
+            cell_hw[si, ki] = (h, w)
+            mask[si, ki] = True
+            write_idx[si, ki] = (h + halo) * pw + (w + halo)
+            for ni, (dh, dw) in enumerate(offsets):
+                nbr_idx[si, ki, ni] = (h + halo + dh) * pw + (w + halo + dw)
+            perm[h * gw + w] = si * k + ki
+    return dict(cell_idx=cell_idx, cell_hw=cell_hw, mask=mask,
+                nbr_idx=nbr_idx, write_idx=write_idx, perm=perm,
+                board_size=board_size, steps=s, lanes=k)
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule_tensors(mode: str, gh: int, gw: int, n_lookback: int,
+                      device: torch.device):
+    sched = inference_schedule(mode, gh, gw, n_lookback)
+    tensors = {key: torch.as_tensor(sched[key], device=device)
+               for key in ("cell_idx", "cell_hw", "nbr_idx", "write_idx",
+                           "perm")}
+    return sched, tensors
+
+
+def _tree_map(fn, *trees):
+    """Apply ``fn`` leafwise over matching nested dicts/tuples of tensors."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {key: _tree_map(fn, *(t[key] for t in trees)) for key in t0}
+    if isinstance(t0, tuple):
+        return tuple(_tree_map(fn, *leaves) for leaves in zip(*trees))
+    return fn(*trees)
+
+
+def infer_latents(params, cfg: SpairConfig, x, step, generator=None,
+                  noise=None):
+    """The inference pass only: image -> latent grids (B, gh, gw, D),
+    posterior (mean, std) pairs and presence probabilities. Shared by
+    ``forward`` and the serving detector (models/infer.py).
+
+    ``noise`` (see sample_noise) overrides draws from ``generator``."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError("the port computes in float32 only")
+    geom = geometry(cfg)
+    _, (gh, gw), _ = geom
+    n = gh * gw
+    b = x.shape[0]
+    device = x.device
+
+    feat_flat = params.backbone(x).reshape(b, n, -1)
+    if noise is None:
+        noise = sample_noise(generator, b, (gh, gw), cfg, device)
+    noise_flat = {name: v.reshape(b, n, v.shape[-1])
+                  for name, v in noise.items()}
+    tw = exponential_decay(step, cfg.training_wheel, device)
+
+    if cfg.inference_mode == "independent":
+        context = params.virtual_edge_element.repeat(
+            cfg.context_neighbors).expand(b, n, cfg.context_dim)
+        hw = np.stack(np.unravel_index(np.arange(n), (gh, gw)), -1)
+        flat = cell_step(params, cfg, geom, x, feat_flat, context, noise_flat,
+                         torch.as_tensor(hw, device=device), tw)
+    else:
+        flat = _scan_inference(params, cfg, geom, x, feat_flat, noise_flat,
+                               tw, b, gh, gw)
+
+    def grid(t):
+        # slot-major unfold into the virtual (gh, gw*S) grid
+        slots = cfg.n_object_slots
+        return t.reshape(b, gh, gw * slots, t.shape[-1] // slots)
+
+    out = _tree_map(grid, {key: flat[key] for key in (
+        "z_where", "z_attr", "z_depth", "z_pres", "z_pres_prob", "posterior",
+        "context_vec")})
+    out["training_wheel"] = tw
+    out["feat_flat"] = feat_flat
+    return out
+
+
+def _scan_inference(params, cfg, geom, x, feat_flat, noise_flat, tw, b, gh,
+                    gw):
+    """Lateral-context inference over the schedule's fronts, as a loop.
+
+    Features and noise are gathered for all fronts up front; each front
+    reads its context from the halo board and writes its context vectors
+    back in place (the reads are gathers, so autograd needs none of the
+    overwritten values). Outputs are put back in raster order at the end."""
+    sched, idx = _schedule_tensors(cfg.inference_mode, gh, gw,
+                                   cfg.n_lookback, x.device)
+    s, k = sched["steps"], sched["lanes"]
+    board = params.virtual_edge_element.expand(
+        b, sched["board_size"] + 1, cfg.context_elem_dim).clone()
+
+    flat_idx = idx["cell_idx"].reshape(-1)
+
+    def pregather(t):  # (B, N, D) -> (B, S, K, D)
+        return t[:, flat_idx].reshape(b, s, k, t.shape[-1])
+
+    feats = pregather(feat_flat)
+    noise = {name: pregather(v) for name, v in noise_flat.items()}
+    outs = []
+    for si in range(s):
+        ctx = board[:, idx["nbr_idx"][si].reshape(-1)].reshape(
+            b, k, cfg.context_dim)
+        out = cell_step(params, cfg, geom, x, feats[:, si], ctx,
+                        {name: v[:, si] for name, v in noise.items()},
+                        idx["cell_hw"][si], tw)
+        board[:, idx["write_idx"][si]] = out["context_vec"]
+        outs.append(out)
+    perm = idx["perm"]
+    return _tree_map(lambda *steps: torch.cat(steps, dim=1)[:, perm], *outs)
+
+
+def forward(params, cfg: SpairConfig, x, step, generator=None, noise=None):
+    """Full inference and generation pass.
+
+    x (B, C, H, W) in [0, 1]; step drives the schedules; ``generator``
+    draws this pass's noise unless ``noise`` is given. Returns (loss, aux)
+    with the reconstruction, the latent grids in NCHW, the training-wheel
+    value and every logged loss term."""
+    if cfg.count_prior_parallel:
+        raise NotImplementedError("count_prior_parallel is not ported yet")
+    z = infer_latents(params, cfg, x, step, generator, noise)
+    z_where, z_attr = z["z_where"], z["z_attr"]
+    z_depth, z_pres = z["z_depth"], z["z_pres"]
+    z_pres_prob, tw = z["z_pres_prob"], z["training_wheel"]
+
+    kls = independent_kl(z["posterior"], z_pres, cfg)
+    kls["pres_dist"] = count_prior_kl(z_pres_prob, z_pres, step, cfg)
+    recon = render(params, cfg, z_attr, z_where, z_depth, z_pres,
+                   cfg.image_shape[1:])
+    loss, terms = loss_and_metrics(x, recon, kls, cfg)
+
+    if cfg.pres_entropy_weight:
+        # borderline-presence penalty, off while the training wheel is on
+        p = z_pres_prob
+        ent = -(p * safe_log(p) + (1.0 - p) * safe_log(1.0 - p))
+        ent_mean = torch.mean(torch.sum(ent, dim=(1, 2, 3)))
+        loss = loss + cfg.pres_entropy_weight * (1.0 - tw) * ent_mean
+        terms["losses/pres_entropy"] = ent_mean
+        terms["losses/total"] = loss
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    aux = {
+        "recon": recon,
+        "z_where": nchw(z_where),
+        "z_pres": nchw(z_pres),
+        "z_depth": nchw(z_depth),
+        "z_attr": nchw(z_attr),
+        "z_pres_prob": nchw(z_pres_prob),
+        "training_wheel": tw,
+        "losses": terms,
+    }
+    return loss, aux
+
+
+def loss_and_metrics(x, recon, kls: Dict, cfg: SpairConfig):
+    """Pixel-sum BCE + vae_beta * sum over latents of the batch-mean KL
+    sums; (loss, terms under the reference's TensorBoard tags)."""
+    recon_loss = binary_cross_entropy_sum(recon, x)
+    terms = {"losses/reconst": recon_loss}
+    kl_loss = 0.0
+    for name, z_kl in kls.items():
+        kl_mean = torch.mean(torch.sum(z_kl, dim=(1, 2, 3)))
+        kl_loss = kl_loss + kl_mean
+        terms[f"losses/KL{name}"] = kl_mean
+    loss = recon_loss + cfg.vae_beta * kl_loss
+    terms["losses/total"] = loss
+    return loss, terms

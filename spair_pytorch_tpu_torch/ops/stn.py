@@ -1,0 +1,63 @@
+"""Spatial transformer as separable hat-weight matmuls (counterpart of
+``spair_pytorch_tpu/ops/stn.py``).
+
+Semantics are ``F.grid_sample(align_corners=True)``: the crop uses border
+padding (source coordinates clamped to the image), the paste zeros padding
+(hat weights vanish outside the glimpse). Boxes are the reference's
+normalized z_where = [xt, yt, xs, ys], (xt, yt) the box centre in [0, 1].
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _source_coords_crop(t, s, out_size: int, in_size: int):
+    """Input-image coordinate of each crop output pixel: (...,) -> (..., out)."""
+    j = torch.arange(out_size, dtype=torch.float32, device=t.device)
+    u_out = 2.0 * j / (out_size - 1) - 1.0
+    x = s[..., None] * u_out + (2.0 * t[..., None] - 1.0)
+    return (x + 1.0) * (in_size - 1) / 2.0
+
+
+def _source_coords_paste(t, s, out_size: int, in_size: int):
+    """Glimpse coordinate sampled by each canvas pixel of a paste: the
+    inverse affine of the crop, u = (u' - (2t - 1)) / s."""
+    i = torch.arange(out_size, dtype=torch.float32, device=t.device)
+    u_out = 2.0 * i / (out_size - 1) - 1.0
+    u = (u_out - (2.0 * t[..., None] - 1.0)) / s[..., None]
+    return (u + 1.0) * (in_size - 1) / 2.0
+
+
+def _hat(src, in_size: int):
+    """Bilinear weights w[..., j, a] = max(0, 1 - |src_j - a|)."""
+    a = torch.arange(in_size, dtype=torch.float32, device=src.device)
+    return torch.clamp(1.0 - torch.abs(src[..., None] - a), min=0.0)
+
+
+def crop_weights(boxes, object_shape, image_hw):
+    """(wy (..., oh, H), wx (..., ow, W)), border padding."""
+    oh, ow = object_shape
+    ih, iw = image_hw
+    xt, yt, xs, ys = boxes.unbind(-1)
+    sy = torch.clamp(_source_coords_crop(yt, ys, oh, ih), 0.0, ih - 1)
+    sx = torch.clamp(_source_coords_crop(xt, xs, ow, iw), 0.0, iw - 1)
+    return _hat(sy, ih), _hat(sx, iw)
+
+
+def paste_weights(boxes, object_shape, image_hw):
+    """(py (..., H, oh), px (..., W, ow)), zeros padding."""
+    oh, ow = object_shape
+    ih, iw = image_hw
+    xt, yt, xs, ys = boxes.unbind(-1)
+    sy = _source_coords_paste(yt, ys, ih, oh)
+    sx = _source_coords_paste(xt, xs, iw, ow)
+    return _hat(sy, oh), _hat(sx, ow)
+
+
+def crop_glimpses(image, boxes, object_shape):
+    """image (B, C, H, W), boxes (B, N, 4) -> glimpses (B, N, C, oh, ow)."""
+    ih, iw = image.shape[-2:]
+    wy, wx = crop_weights(boxes, object_shape, (ih, iw))
+    tmp = torch.einsum("bnyh,bchw->bncyw", wy, image)
+    return torch.einsum("bncyw,bnxw->bncyx", tmp, wx)

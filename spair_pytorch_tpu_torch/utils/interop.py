@@ -1,0 +1,59 @@
+"""Parameters carried over from the JAX package, without jax.
+
+``state_dict_from_jax`` maps the JAX parameter pytree (as numpy arrays) to
+the reference state_dict layout, exactly as ``spair_pytorch_tpu/utils/
+interop.py::to_torch_state_dict`` does: conv kernels HWIO -> OIHW, linear
+weights (in, out) -> (out, in). The port's modules carry those names, so
+the result loads with ``load_state_dict(strict=True)``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+_MLPS = (  # (state_dict name, JAX name, multi-head?)
+    ("box_network", "box_net", True),
+    ("object_encoder", "object_encoder", False),
+    ("z_network", "z_net", True),
+    ("obj_network", "obj_net", False),
+    ("object_decoder", "object_decoder", False),
+)
+
+
+def _linear(prefix: str, layer, out: Dict[str, np.ndarray]):
+    out[f"{prefix}.weight"] = np.asarray(layer["w"]).T.copy()
+    out[f"{prefix}.bias"] = np.asarray(layer["b"]).copy()
+
+
+def state_dict_from_jax(params_np) -> Dict[str, np.ndarray]:
+    """JAX param pytree (numpy leaves) -> {state_dict key: numpy array}."""
+    out: Dict[str, np.ndarray] = {}
+    layers = params_np["backbone"]["layers"]
+    for i, layer in enumerate(layers):
+        name = f"conv_{i}" if i < len(layers) - 1 else "conv_out"
+        out[f"backbone.net.{name}.weight"] = np.asarray(
+            layer["w"]).transpose(3, 2, 0, 1).copy()
+        out[f"backbone.net.{name}.bias"] = np.asarray(layer["b"]).copy()
+    for sd_name, jax_name, multi in _MLPS:
+        p = params_np[jax_name]
+        body = f"{sd_name}.body" if multi else sd_name
+        for i, layer in enumerate(p["trunk"]):
+            _linear(f"{body}.dense{i}", layer, out)
+        if multi:
+            for j, head in enumerate(p["heads"]):
+                _linear(f"{sd_name}.output_layers.{j}", head, out)
+        else:
+            _linear(f"{sd_name}.out", p["heads"][0], out)
+    out["virtual_edge_element"] = np.asarray(params_np["edge"]).copy()
+    return out
+
+
+def load_jax_params(model: torch.nn.Module, params_np) -> torch.nn.Module:
+    """Copy JAX parameters (numpy leaves) into ``model``, strictly."""
+    sd = {k: torch.from_numpy(v) for k, v in
+          state_dict_from_jax(params_np).items()}
+    model.load_state_dict(sd, strict=True)
+    return model
