@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (spair_pytorch_tpu_torch).
 
-Drives the port's forward path once at paper128 width on one CUDA card, with
-random weights from the preset's seed:
+Drives the port's serving path and its training step at paper128 width on
+one CUDA card, with random weights from the preset's seed:
 
   1. device     the card's name and power limit (nvidia-smi);
-  2. build      compiles csrc/composite_fwd.cu with nvcc;
+  2. build      compiles csrc/composite_fwd.cu and csrc/composite_bwd.cu,
+                one nvcc each, started together;
   3. kernel     the composite kernel against its plain PyTorch version at
                 paper128 shapes (B=32, N=121, C=1, 28x28 glimpses, 128x128
                 canvas): f32 ungated, f32 gated, all gated, bf16 glimpses,
@@ -15,14 +16,32 @@ random weights from the preset's seed:
                 ungated and with pres_gate_threshold=0.01;
   5. serving    DetectorServer with buckets (1, 8, 32) answers 64 requests;
   6. times      CUDA-event times after warmup: kernel vs plain compositor at
-                B=32 and B=128, the eval step and the detector at B=32;
-                each layer of the eval step alone; the device-busy share
-                of one eval step under torch.profiler.
+                B=32 and B=128 (both kernels first held against their plain
+                versions on the timed inputs, ungated and gated), the eval
+                step and the detector at B=32; each layer of the eval step
+                alone; the device-busy share of one eval step under
+                torch.profiler;
+  7. backward   the backward kernel against composite_backward_plain at
+                paper128 shapes: f32 ungated and gated, all gated (exact
+                zeros), bf16 glimpses against f32 truth, C=3; and the
+                autograd Function against autograd through composite_plain;
+  8. train      one f32 train step at B=32 through the kernels ('auto') and
+                through the plain compositor ('xla'), from the same weights,
+                images and noise: loss and every parameter's gradient;
+  9. main path  make_train_step(datagen, steps_per_call=10) at paper128,
+                bf16, wavefront, gate 0.01, batch 128: cold-start steps
+                from random weights (dense presence), finite losses, ms/step
+                and img/s, the device-busy share of one step; then both
+                kernels against their plain versions on the compositor
+                inputs that the trained state's inference and decoder make
+                for a generated batch of 128 (f32 glimpses, the 0.01 gate);
+ 10. times      the backward kernel against its plain version at B=32 and
+                B=128, each first held against it on the timed inputs.
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
-cuDNN convs in full f32), so the two compositors are compared on the same
-arithmetic. The last two lines are a JSON summary of the kernels and the
-result line {"ok": true, "device": {...}}.
+cuDNN convs in full f32), so kernels and plain versions are compared on the
+same arithmetic. The last two lines are a JSON summary of the kernels and
+the result line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py              # on a machine with a CUDA card
 """
@@ -39,7 +58,10 @@ import torch
 
 F32_BAR = 1e-4   # f32 forward relative error (bench.py's kernel gate)
 BF16_BAR = 3e-2  # bf16 glimpses against f32 truth
+GRAD_BAR = 1e-3       # f32 gradients (bench.py's gradient gate)
+BF16_GRAD_BAR = 6e-2  # bf16 glimpses' gradients against f32 truth
 B, N, C, OH, OW, HW, WIN = 32, 121, 1, 28, 28, (128, 128), 64
+TRAIN_B, STEPS_PER_CALL, TRAIN_CALLS = 128, 10, 3
 
 
 def phase(name, msg):
@@ -61,13 +83,13 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def random_glimpses(b, n, gen, dev):
+def random_glimpses(b, n, gen, dev, c=C):
     """Inputs drawn as the JAX package's bench check draws them: uniform
     glimpses, importance >= 0.01, centres in [0.05, 0.95], scales in
     [0.05, anchor/H]."""
     def u(*shape, lo=0.0, hi=1.0):
         return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
-    color = u(b, n, C, OH, OW)
+    color = u(b, n, c, OH, OW)
     alpha = u(b, n, 1, OH, OW)
     imp = u(b, n, 1, OH, OW, lo=0.01)
     boxes = torch.cat([u(b, n, 2, lo=0.05, hi=0.95),
@@ -76,10 +98,49 @@ def random_glimpses(b, n, gen, dev):
 
 
 def rel_err(got, want):
-    """(max |got - want| / max |want|, max |got - want|) over num and den."""
-    abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    """(max |got - want| / max |want|, max |got - want|) over all outputs."""
+    abs_err = max(float((g.float() - w).abs().max())
+                  for g, w in zip(got, want))
     scale = max(float(w.abs().max()) for w in want)
     return abs_err / scale, abs_err
+
+
+def check(tag, name, bar, got, want):
+    """Hold a kernel's outputs against its plain version's; raises above
+    ``bar``, returns the max abs error."""
+    torch.cuda.synchronize()
+    rel, abs_err = rel_err(got, want)
+    phase(tag, f"{name}: rel err {rel:.3e} (bar {bar:g}), max abs err "
+               f"{abs_err:.3e}")
+    if not rel < bar:
+        raise AssertionError(f"{tag} case {name} disagrees: {rel}")
+    return abs_err
+
+
+def random_gate(b, gen, dev):
+    """About 30% of the objects gated off."""
+    return (torch.rand((b, N), generator=gen, device=dev) > 0.3).float()
+
+
+def random_cotangents(b, gen, dev, c=C):
+    return (torch.randn((b, c) + HW, generator=gen, device=dev),
+            torch.randn((b, 1) + HW, generator=gen, device=dev))
+
+
+def held_at(K, inputs, gate, cotangents):
+    """K1 and K2 against their plain versions on one set of inputs (color,
+    alpha, importance, boxes) and cotangents (dnum, dden), ungated and with
+    ``gate``."""
+    b = inputs[0].shape[0]
+    dnum, dden = cotangents
+    for name, g in (("ungated", None), ("gated", gate)):
+        check("held", f"composite_fwd B={b} {name}", F32_BAR,
+              K.composite_forward(*inputs, HW, WIN, pres_gate=g),
+              K.composite_plain(*inputs, HW, pres_gate=g))
+        check("held", f"composite_bwd B={b} {name}", GRAD_BAR,
+              K.composite_backward(*inputs, HW, dnum, dden, pres_gate=g),
+              K.composite_backward_plain(*inputs, HW, dnum, dden,
+                                         pres_gate=g))
 
 
 def kernel_phase(K, dev):
@@ -89,13 +150,7 @@ def kernel_phase(K, dev):
     cases = {}
 
     def case(name, bar, got, want):
-        torch.cuda.synchronize()
-        rel, abs_err = rel_err(got, want)
-        cases[name] = abs_err
-        phase("kernel", f"{name}: rel err {rel:.3e} (bar {bar:g}), "
-                        f"max abs err {abs_err:.3e}")
-        if not rel < bar:
-            raise AssertionError(f"kernel case {name} disagrees: {rel}")
+        cases[name] = check("kernel", name, bar, got, want)
 
     args = (color, alpha, imp, boxes, HW)
     case("f32 ungated", F32_BAR, K.composite_forward(*args, WIN),
@@ -126,11 +181,32 @@ def kernel_phase(K, dev):
     return max(v for k, v in cases.items() if not k.startswith("bf16"))
 
 
+def profiled(fn):
+    """Run fn once under torch.profiler after a synchronize: (wall ms,
+    device-busy ms, device kernel count, key_averages)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # only the device's own rows (kernels, memcpy, memset), as the
+    # profiler's "Self CUDA time total" counts them: host-side rows (aten::
+    # ops, autograd nodes) and device-side user annotations (the optimizer's
+    # record_function range) repeat the time of the kernels inside them
+    from torch.autograd import DeviceType
+    events = prof.key_averages()
+    device_rows = [e for e in events if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in device_rows) / 1e3
+    return wall, busy, sum(e.count for e in device_rows), events
+
+
 def profile_eval(cfg, params, x, step, eval_step, card):
     """Per-layer times of one eval step (CUDA events, each layer run alone
     and synchronized) and the device-busy share from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     from spair_pytorch_tpu_torch.models.infer import nms_keep_batch
     from spair_pytorch_tpu_torch.models.kl import (count_prior_kl,
                                                    independent_kl)
@@ -168,25 +244,233 @@ def profile_eval(cfg, params, x, step, eval_step, card):
         for name, fn in layers.items():
             phase("layer", f"{name}: {cuda_ms(fn, 5):.3f} ms ({card})")
         eval_step(params, x, step, gen)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eval_step(params, x, step, gen)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-    # device rows (kernels, memcpy, memset) carry device time and no aten::
-    # name; the aten:: rows repeat their kernels' time
-    events = prof.key_averages()
-    device_rows = [e for e in events if not e.key.startswith("aten::")
-                   and getattr(e, "self_device_time_total", 0.0) > 0]
-    busy = sum(e.self_device_time_total for e in device_rows) / 1e3
-    n_kernels = sum(e.count for e in device_rows)
+        wall, busy, n_kernels, events = profiled(
+            lambda: eval_step(params, x, step, gen))
     phase("layer", f"eval step under the profiler: {wall:.3f} ms wall, "
                    f"device busy {busy:.3f} ms ({busy / wall:.1%}), "
                    f"{n_kernels} device kernels ({card})")
     print(events.table(sort_by="self_device_time_total", row_limit=12),
           flush=True)
+
+
+def grad_rel(got, want):
+    """max |got - want| / max(1, max |want|), bench.py's gradient error."""
+    return float((got.float() - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def backward_phase(K, dev):
+    """The backward kernel against composite_backward_plain at paper128
+    shapes; returns the largest f32 absolute error."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    errs = {}
+
+    def case(name, bar, inputs, gate=None, bf16=False):
+        color, alpha, imp, boxes = inputs
+        dnum, dden = random_cotangents(B, gen, dev, c=color.shape[2])
+        glimpses = (color, alpha, imp)
+        if bf16:
+            glimpses = tuple(t.to(torch.bfloat16) for t in glimpses)
+        got = K.composite_backward(*glimpses, boxes, HW, dnum, dden,
+                                   pres_gate=gate)
+        want = K.composite_backward_plain(color, alpha, imp, boxes, HW, dnum,
+                                          dden, pres_gate=gate)
+        errs[name] = check("backward", name, bar, got, want)
+        return got
+
+    inputs = random_glimpses(B, N, gen, dev)
+    gate = (torch.rand((B, N), generator=gen, device=dev) > 0.7).float()
+    case("f32 ungated", GRAD_BAR, inputs)
+    got = case("f32 gated", GRAD_BAR, inputs, gate)
+    dead = gate == 0
+    if not all(bool((g[dead] == 0).all()) for g in got):
+        raise AssertionError("gated objects got nonzero gradients")
+    got = K.composite_backward(*inputs, HW, torch.ones((B, C) + HW, device=dev),
+                               torch.ones((B, 1) + HW, device=dev),
+                               pres_gate=torch.zeros_like(gate))
+    torch.cuda.synchronize()
+    if not all(bool((g == 0).all()) for g in got):
+        raise AssertionError("all-gated backward is not exactly zero")
+    phase("backward", "all gated: every gradient == 0")
+    case("bf16 glimpses", BF16_GRAD_BAR, inputs, gate, bf16=True)
+    case("C=3 gated", GRAD_BAR, random_glimpses(B, N, gen, dev, c=3), gate)
+
+    # the autograd Function against autograd through the plain compositor
+    color, alpha, imp, boxes = (t[:4].contiguous() for t in inputs)
+    nb = color.shape[0]
+    dnum, dden = random_cotangents(nb, gen, dev)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (color, alpha, imp, boxes)]
+        num, den = fn(*leaves, HW, pres_gate=gate[:nb].contiguous())
+        torch.autograd.backward((num, den), (dnum, dden))
+        return [t.grad for t in leaves]
+
+    got, want = grads(K.composite), grads(K.composite_plain)
+    rel = max(grad_rel(g, w) for g, w in zip(got, want))
+    phase("backward", f"CompositeFunction vs autograd through composite_plain"
+                      f" (B={nb}, gated): rel err {rel:.3e} (bar "
+                      f"{GRAD_BAR:g})")
+    if not rel < GRAD_BAR:
+        raise AssertionError("CompositeFunction disagrees with autograd")
+    return max(v for k, v in errs.items() if not k.startswith("bf16"))
+
+
+def train_parity_phase(K, cfg, x, dev):
+    """One f32 train step at B=32 through the kernels and through the plain
+    compositor, from the same weights, images and noise."""
+    from spair_pytorch_tpu_torch.models import geometry, sample_noise
+    from spair_pytorch_tpu_torch.parallel import create_train_state, train_step
+
+    noise = sample_noise(torch.Generator(device=dev).manual_seed(9), B,
+                         geometry(cfg)[1], cfg, dev)
+
+    def run(backend):
+        c = dataclasses.replace(cfg, render_backend=backend)
+        state = create_train_state(c, device=dev)
+        state.step.fill_(1500)  # past the training wheel: every head learns
+        metrics = train_step(c, state, x, noise=noise)
+        torch.cuda.synchronize()
+        return metrics, {k: p.grad for k, p in
+                         state.model.named_parameters()}
+
+    K.composite_forward.launches = K.composite_backward.launches = 0
+    m_k, g_k = run("auto")
+    launches = (K.composite_forward.launches, K.composite_backward.launches)
+    m_p, g_p = run("xla")
+    loss_k, loss_p = float(m_k["losses/total"]), float(m_p["losses/total"])
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = max(g_p, key=lambda k: grad_rel(g_k[k], g_p[k]))
+    grad_err = grad_rel(g_k[worst], g_p[worst])
+    phase("train", f"f32 step B={B}: loss {loss_k:.6f} (plain compositor "
+                   f"{loss_p:.6f}, rel diff {loss_rel:.3e}, bar {F32_BAR:g});"
+                   f" worst parameter gradient {worst} rel err "
+                   f"{grad_err:.3e} (bar {GRAD_BAR:g}); launches K1 "
+                   f"{launches[0]}, K2 {launches[1]}")
+    if min(launches) < 1:
+        raise AssertionError("the train step did not launch both kernels")
+    if not (loss_rel < F32_BAR and grad_err < GRAD_BAR):
+        raise AssertionError("kernel train step disagrees with the plain "
+                             "compositor")
+
+
+def main_path_phase(K, card, dev):
+    """The training main path at paper128, bf16, wavefront, gate 0.01,
+    batch 128: make_train_step with on-device data, steps_per_call=10.
+    Returns the kernel launch counts of the run."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.data import DataConfig, glyph_bank
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+
+    cfg = PRESETS["paper128"](batch_size=TRAIN_B, inference_mode="wavefront",
+                              compute_dtype="bfloat16",
+                              pres_gate_threshold=0.01)
+    bank = torch.as_tensor(glyph_bank((14, 14)), device=dev)
+    dcfg = DataConfig(image_hw=cfg.image_shape[1:],
+                      min_objects=cfg.min_scene_objects,
+                      max_objects=cfg.max_scene_objects)
+    state = create_train_state(cfg, device=dev)
+    step_fn = make_train_step(cfg, datagen=(dcfg, bank),
+                              steps_per_call=STEPS_PER_CALL)
+
+    K.composite_forward.launches = K.composite_backward.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    state, m = step_fn(state)  # warmup call: cuDNN and allocator
+    losses.append(m["losses/total"])
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_CALLS):
+        state, m = step_fn(state)
+        losses.append(m["losses/total"])
+    end.record()
+    torch.cuda.synchronize()
+    launches = (K.composite_forward.launches, K.composite_backward.launches)
+    ms = start.elapsed_time(end) / (TRAIN_CALLS * STEPS_PER_CALL)
+    losses = torch.cat(losses)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite training loss: {losses.tolist()}")
+    if min(launches) < 1:
+        raise AssertionError(f"the main path did not launch both kernels: "
+                             f"{launches}")
+    steps = (1 + TRAIN_CALLS) * STEPS_PER_CALL
+    phase("main", f"{steps} train steps, paper128 bf16 wavefront gate 0.01 "
+                  f"b{TRAIN_B}: losses {float(losses[0]):.1f} -> "
+                  f"{float(losses[-1]):.1f}, all finite; live objects "
+                  f"{float(m['debug/pres_count_mean'][-1]):.1f}/{N} per image"
+                  f" (cold start from random weights: dense presence, unlike"
+                  f" bench.py's --pretrain 2500); launches K1 {launches[0]}, "
+                  f"K2 {launches[1]}; warmup call {warm:.2f} s")
+    phase("main", f"train step: {ms:.3f} ms/step, {TRAIN_B / ms * 1e3:.1f} "
+                  f"img/s (CUDA events over {TRAIN_CALLS} calls of "
+                  f"{STEPS_PER_CALL} steps; {card})")
+    one = make_train_step(cfg, datagen=(dcfg, bank))
+    wall, busy, n_kernels, events = profiled(lambda: one(state))
+    # the profiler's host overhead stretches the wall; the busy share of the
+    # unprofiled step is the device time over the CUDA-event ms/step
+    phase("main", f"one train step under the profiler: {wall:.3f} ms wall, "
+                  f"device busy {busy:.3f} ms ({busy / wall:.1%} of that "
+                  f"wall, {busy / ms:.1%} of the unprofiled {ms:.3f} ms), "
+                  f"{n_kernels} device kernels ({card})")
+    print(events.table(sort_by="self_device_time_total", row_limit=15),
+          flush=True)
+
+    # both kernels held against their plain versions on the compositor's
+    # inputs as the main path's render makes them from the trained state
+    inputs, gate = main_path_inputs(state, cfg, dcfg, bank)
+    phase("main", f"main-path compositor inputs: glimpses {inputs[0].dtype},"
+                  f" {int(gate.sum())} of {gate.numel()} objects live")
+    held_at(K, inputs, gate, random_cotangents(
+        TRAIN_B, torch.Generator(device=dev).manual_seed(5), dev))
+    return launches
+
+
+def main_path_inputs(state, cfg, dcfg, bank):
+    """((color, alpha, importance, boxes), gate) as ``render`` hands them to
+    the compositor, for a batch generated from the state's generator."""
+    from spair_pytorch_tpu_torch.data import generate_batch
+    from spair_pytorch_tpu_torch.models.render import decode_objects
+    from spair_pytorch_tpu_torch.models.spair import (compute_dtype,
+                                                      infer_latents)
+    x, _, _ = generate_batch(state.generator, bank, cfg.batch_size, dcfg)
+    with torch.no_grad():
+        z = infer_latents(state.model, cfg, x, state.step, state.generator)
+        flat = {k: z[k].reshape(x.shape[0], -1, z[k].shape[-1])
+                for k in ("z_attr", "z_pres", "z_depth", "z_where")}
+        glimpses = decode_objects(state.model, cfg, flat["z_attr"],
+                                  flat["z_pres"], flat["z_depth"],
+                                  compute_dtype(cfg))
+    gate = (flat["z_pres"][..., 0] > cfg.pres_gate_threshold).float()
+    return (*glimpses, flat["z_where"].contiguous()), gate.contiguous()
+
+
+def backward_times(K, card, dev):
+    """CUDA-event ms of the backward kernel and its plain version, in turns
+    (plain, kernel, kernel, plain), at B=32 and B=128, each held against
+    its plain version on the inputs it is timed on."""
+    times = {}
+    for b in (32, 128):
+        gen = torch.Generator(device=dev).manual_seed(b + 1)
+        inputs = random_glimpses(b, N, gen, dev)
+        dnum, dden = random_cotangents(b, gen, dev)
+        held_at(K, inputs, random_gate(b, gen, dev), (dnum, dden))
+
+        def kern():
+            K.composite_backward(*inputs, HW, dnum, dden)
+
+        def plain():
+            K.composite_backward_plain(*inputs, HW, dnum, dden)
+
+        p1, k1, k2, p2 = (cuda_ms(f, 10) for f in (plain, kern, kern, plain))
+        times[b] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        phase("time", f"composite backward B={b}: kernel {times[b][0]:.4f} "
+                      f"ms, plain {times[b][1]:.4f} ms ({card})")
+    return times
 
 
 def main():
@@ -218,9 +502,11 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    lib_path = K.build_library()
-    K.load_library()
-    phase("build", f"{lib_path.name} in {time.perf_counter() - t0:.2f} s")
+    libs = K.build_library()
+    for name in libs:
+        K.load_library(name)
+    phase("build", f"{', '.join(p.name for p in libs.values())} in "
+                   f"{time.perf_counter() - t0:.2f} s")
 
     # 3. kernel against plain version
     with torch.no_grad():
@@ -242,7 +528,6 @@ def main():
         torch.cuda.synchronize()
         return loss, aux
 
-    launches = None
     for thr in (0.0, 0.01):
         c_auto = dataclasses.replace(cfg, render_backend="auto",
                                      pres_gate_threshold=thr)
@@ -250,8 +535,6 @@ def main():
         K.composite_forward.launches = 0
         loss, aux = run(c_auto)
         n_launch = K.composite_forward.launches
-        if launches is None:
-            launches = n_launch
         loss_x, aux_x = run(c_xla)
         recon = aux["recon"]
         if n_launch < 1:
@@ -294,8 +577,10 @@ def main():
     times = {}
     with torch.no_grad():
         for b in (32, 128):
-            inputs = random_glimpses(
-                b, N, torch.Generator(device=dev).manual_seed(b), dev)
+            gen = torch.Generator(device=dev).manual_seed(b)
+            inputs = random_glimpses(b, N, gen, dev)
+            held_at(K, inputs, random_gate(b, gen, dev),
+                    random_cotangents(b, gen, dev))
 
             def kern():
                 K.composite_forward(*inputs, HW, WIN)
@@ -322,12 +607,30 @@ def main():
 
     profile_eval(cfg, params, x, step, eval_auto, card)
 
-    print(json.dumps({"kernels": [{
-        "name": "composite_fwd", "route": "cuda",
-        "source": "spair_pytorch_tpu_torch/csrc/composite_fwd.cu",
-        "replaces": "spair_pytorch_tpu/ops/pallas/composite.py:79",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": times[32][0], "plain_ms": times[32][1]}]}))
+    # 7. backward kernel against its plain version
+    bwd_abs_err = backward_phase(K, dev)
+
+    # 8. one f32 train step, kernels against the plain compositor
+    train_parity_phase(K, dataclasses.replace(cfg, pres_gate_threshold=0.01),
+                       x, dev)
+
+    # 9. the training main path
+    launches = main_path_phase(K, card, dev)
+
+    # 10. backward times
+    bwd_times = backward_times(K, card, dev)
+
+    src = "spair_pytorch_tpu_torch/csrc"
+    pallas = "spair_pytorch_tpu/ops/pallas/composite.py"
+    print(json.dumps({"kernels": [
+        {"name": "composite_fwd", "route": "cuda",
+         "source": f"{src}/composite_fwd.cu", "replaces": f"{pallas}:79",
+         "launches": launches[0], "max_abs_err": max_abs_err,
+         "ms": times[32][0], "plain_ms": times[32][1]},
+        {"name": "composite_bwd", "route": "cuda",
+         "source": f"{src}/composite_bwd.cu", "replaces": f"{pallas}:133",
+         "launches": launches[1], "max_abs_err": bwd_abs_err,
+         "ms": bwd_times[32][0], "plain_ms": bwd_times[32][1]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

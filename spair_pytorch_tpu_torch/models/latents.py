@@ -114,16 +114,18 @@ def freeze_learning(v, tw):
 
 
 def cell_step(params: SpairModel, cfg: SpairConfig, geom, image, feat_cells,
-              context, noise: Dict, cell_hw, tw):
+              context, noise: Dict, cell_hw, tw, dtype=None):
     """Run every head for a set of K cells in parallel.
 
     image (B, C, H, W); feat_cells (B, K, F); context (B, K, context_dim);
     noise {name: (B, K, ·)}; cell_hw (K, 2) long cell coordinates; tw the
-    training-wheel scalar. With S = n_object_slots > 1 every per-object
-    quantity carries a slot axis inside and is folded slot-major into the
-    last dim on return. Returns the sampled latents, the posterior
-    (mean, std) pairs under the reference's names, the presence probability
-    and the S*56-dim context vector each cell shows its neighbours."""
+    training-wheel scalar; ``dtype`` the compute dtype of the MLPs and the
+    glimpse crop (None for float32); the MLP outputs return in float32.
+    With S = n_object_slots > 1 every per-object quantity carries a slot
+    axis inside and is folded slot-major into the last dim on return.
+    Returns the sampled latents, the posterior (mean, std) pairs under the
+    reference's names, the presence probability and the S*56-dim context
+    vector each cell shows its neighbours."""
     _, _, cell_px = geom
     img_h, img_w = cfg.image_shape[1:]
     s = cfg.n_object_slots
@@ -140,7 +142,8 @@ def cell_step(params: SpairModel, cfg: SpairConfig, geom, image, feat_cells,
 
     # --- z_where ---
     box_latent, passthru = params.box_network(
-        torch.cat([feat_cells, context], dim=-1), packed=cfg.packed_heads)
+        torch.cat([feat_cells, context], dim=-1), packed=cfg.packed_heads,
+        dtype=dtype)
     mean, std = latent_to_mean_std(per_slot(box_latent))    # (B, K, S, 4)
     mean, std = freeze_learning(mean, tw), freeze_learning(std, tw)
     box_logits = mean + std * per_slot(noise["box"])  # order (cy, cx, h, w)
@@ -165,15 +168,17 @@ def cell_step(params: SpairModel, cfg: SpairConfig, geom, image, feat_cells,
 
     # --- z_what ---
     glimpses = crop_glimpses(image, z_where.reshape(b, k * s, 4),
-                             cfg.object_shape)             # (B, K*S, C, oh, ow)
-    attr_latent = params.object_encoder(glimpses.reshape(b, k * s, -1))[0]
+                             cfg.object_shape, dtype)      # (B, K*S, C, oh, ow)
+    attr_latent = params.object_encoder(glimpses.reshape(b, k * s, -1),
+                                        dtype=dtype)[0]
     attr_mean, attr_std = latent_to_mean_std(attr_latent.reshape(b, k, s, -1))
     attr = attr_mean + attr_std * per_slot(noise["attr"])
 
     # --- z_depth ---
     z_in = torch.cat([shared(feat_cells), shared(context), shared(passthru),
                       box, attr], dim=-1)
-    depth_latent, passthru2 = params.z_network(z_in, packed=cfg.packed_heads)
+    depth_latent, passthru2 = params.z_network(z_in, packed=cfg.packed_heads,
+                                               dtype=dtype)
     depth_mean, depth_std = latent_to_mean_std(depth_latent)
     depth_mean = freeze_learning(depth_mean, tw)
     depth_std = freeze_learning(depth_std, tw)
@@ -183,7 +188,8 @@ def cell_step(params: SpairModel, cfg: SpairConfig, geom, image, feat_cells,
     # --- z_pres ---
     obj_in = torch.cat([shared(feat_cells), shared(context), passthru2, box,
                         attr, depth], dim=-1)
-    pres_logit = freeze_learning(params.obj_network(obj_in)[0], tw)
+    pres_logit = freeze_learning(params.obj_network(obj_in, dtype=dtype)[0],
+                                 tw)
     stick = s > 1 and cfg.slot_coupling == "stick"
     if stick:
         # ordered stick-breaking: later slots start biased off

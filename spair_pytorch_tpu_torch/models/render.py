@@ -3,9 +3,10 @@
 
 The composite is the reference's importance-normalized blend, out =
 num / den clipped to [0, 1], with num and den from
-``ops/kernels/composite.py``: the CUDA kernel (``render_backend`` 'pallas'
-or 'auto'; on CPU tensors its plain version) or the plain chunked
-compositor ('xla').
+``ops/kernels/composite.py``: ``composite``, the autograd Function over the
+CUDA forward and backward kernels (``render_backend`` 'pallas' or 'auto';
+on CPU tensors their plain versions), or the plain chunked compositor under
+autograd ('xla').
 """
 
 from __future__ import annotations
@@ -14,20 +15,22 @@ import numpy as np
 import torch
 
 from spair_pytorch_tpu_torch.config import SpairConfig
-from spair_pytorch_tpu_torch.ops.kernels.composite import (composite_forward,
+from spair_pytorch_tpu_torch.ops.kernels.composite import (composite,
                                                            composite_plain)
 from spair_pytorch_tpu_torch.ops.math import clamped_sigmoid
 
 
-def decode_objects(params, cfg: SpairConfig, z_attr, z_pres, z_depth):
+def decode_objects(params, cfg: SpairConfig, z_attr, z_pres, z_depth,
+                   dtype=None):
     """z_attr (B, N, A) -> (color, alpha, importance), each (B, N, ·, oh, ow).
 
-    Logits are scaled (color x obj_logit_scale, alpha x alpha_logit_scale +
+    The decoder MLP computes in ``dtype`` and returns float32 logits. They
+    are scaled (color x obj_logit_scale, alpha x alpha_logit_scale +
     alpha_logit_bias) and squashed with the analytical sigmoid; alpha is
     gated by z_pres and importance = clamp(alpha * depth, min=0.01)."""
     c = cfg.n_channels
     oh, ow = cfg.object_shape
-    logits = params.object_decoder(z_attr)[0]
+    logits = params.object_decoder(z_attr, dtype=dtype)[0]
     b, n = logits.shape[:2]
     logits = logits.reshape(b, n, oh, ow, c + 1)
     color_logits = logits[..., :c] * cfg.obj_logit_scale
@@ -56,12 +59,15 @@ def paste_window_rows(cfg: SpairConfig, image_hw):
 
 
 def render(params, cfg: SpairConfig, z_attr, z_where, z_depth, z_pres,
-           image_hw):
+           image_hw, dtype=None):
     """Latent grids (B, gh, gw, ·) -> reconstruction (B, C, H, W) in [0, 1].
 
-    With ``pres_gate_threshold`` > 0, objects whose z_pres is not above it
-    are left out of the composite (den keeps their 1e-9 floor): the kernel
-    skips them, the plain compositor masks their glimpses."""
+    ``dtype`` is the decoder's compute dtype; its outputs, and so the
+    glimpses the compositor sees, are float32 either way. With
+    ``pres_gate_threshold`` > 0, objects whose z_pres is not above it are
+    left out of the composite (den keeps their 1e-9 floor) and get no
+    reconstruction gradient: the kernels skip them, the plain compositor
+    masks their glimpses."""
     if cfg.render_mode != "reference":
         raise NotImplementedError(
             f"render_mode {cfg.render_mode!r} is not ported yet")
@@ -74,7 +80,7 @@ def render(params, cfg: SpairConfig, z_attr, z_where, z_depth, z_pres,
         return t.reshape(b, n, t.shape[-1])
 
     color, alpha, importance = decode_objects(
-        params, cfg, flat(z_attr), flat(z_pres), flat(z_depth))
+        params, cfg, flat(z_attr), flat(z_pres), flat(z_depth), dtype)
     boxes = flat(z_where).contiguous()
     gate = None
     if cfg.pres_gate_threshold > 0.0:
@@ -83,9 +89,8 @@ def render(params, cfg: SpairConfig, z_attr, z_where, z_depth, z_pres,
 
     backend = cfg.render_backend
     if backend in ("pallas", "auto"):
-        num, den = composite_forward(color, alpha, importance, boxes,
-                                     image_hw, paste_window_rows(cfg, image_hw),
-                                     pres_gate=gate)
+        num, den = composite(color, alpha, importance, boxes, image_hw,
+                             paste_window_rows(cfg, image_hw), pres_gate=gate)
     elif backend == "xla":
         num, den = composite_plain(color, alpha, importance, boxes, image_hw,
                                    cfg.render_chunk, pres_gate=gate)

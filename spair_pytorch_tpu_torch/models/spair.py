@@ -9,7 +9,14 @@ time in raster order ('raster'), the 31 fronts of constant d = 2h + w on an
 (gh + 2n) x (gw + 2n) + 1 grid of context vectors initialized with the edge
 element; each front reads its neighbours' slots and writes its own, and a
 trash slot absorbs the writes of padded lanes. Here the scan over fronts is
-a Python loop.
+a Python loop, and the board is written in place: a front reads it by
+gathers, whose backward needs only the indices, so autograd keeps none of
+the overwritten values.
+
+``cfg.compute_dtype='bfloat16'`` runs the backbone, the MLPs and the glimpse
+crop in bf16 (float32 master weights); features, MLP outputs and the
+reconstruction come back in float32, so the latent math, the KLs, the
+compositor and the loss are float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -102,6 +109,15 @@ def _schedule_tensors(mode: str, gh: int, gw: int, n_lookback: int,
     return sched, tensors
 
 
+def compute_dtype(cfg: SpairConfig):
+    """The MLP/backbone/crop compute dtype: None for float32."""
+    if cfg.compute_dtype == "float32":
+        return None
+    if cfg.compute_dtype == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
+
+
 def _tree_map(fn, *trees):
     """Apply ``fn`` leafwise over matching nested dicts/tuples of tensors."""
     t0 = trees[0]
@@ -119,15 +135,14 @@ def infer_latents(params, cfg: SpairConfig, x, step, generator=None,
     ``forward`` and the serving detector (models/infer.py).
 
     ``noise`` (see sample_noise) overrides draws from ``generator``."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError("the port computes in float32 only")
     geom = geometry(cfg)
     _, (gh, gw), _ = geom
     n = gh * gw
     b = x.shape[0]
     device = x.device
+    dtype = compute_dtype(cfg)
 
-    feat_flat = params.backbone(x).reshape(b, n, -1)
+    feat_flat = params.backbone(x, dtype).reshape(b, n, -1).to(torch.float32)
     if noise is None:
         noise = sample_noise(generator, b, (gh, gw), cfg, device)
     noise_flat = {name: v.reshape(b, n, v.shape[-1])
@@ -139,10 +154,10 @@ def infer_latents(params, cfg: SpairConfig, x, step, generator=None,
             cfg.context_neighbors).expand(b, n, cfg.context_dim)
         hw = np.stack(np.unravel_index(np.arange(n), (gh, gw)), -1)
         flat = cell_step(params, cfg, geom, x, feat_flat, context, noise_flat,
-                         torch.as_tensor(hw, device=device), tw)
+                         torch.as_tensor(hw, device=device), tw, dtype)
     else:
         flat = _scan_inference(params, cfg, geom, x, feat_flat, noise_flat,
-                               tw, b, gh, gw)
+                               tw, dtype, b, gh, gw)
 
     def grid(t):
         # slot-major unfold into the virtual (gh, gw*S) grid
@@ -157,8 +172,8 @@ def infer_latents(params, cfg: SpairConfig, x, step, generator=None,
     return out
 
 
-def _scan_inference(params, cfg, geom, x, feat_flat, noise_flat, tw, b, gh,
-                    gw):
+def _scan_inference(params, cfg, geom, x, feat_flat, noise_flat, tw, dtype,
+                    b, gh, gw):
     """Lateral-context inference over the schedule's fronts, as a loop.
 
     Features and noise are gathered for all fronts up front; each front
@@ -184,7 +199,7 @@ def _scan_inference(params, cfg, geom, x, feat_flat, noise_flat, tw, b, gh,
             b, k, cfg.context_dim)
         out = cell_step(params, cfg, geom, x, feats[:, si], ctx,
                         {name: v[:, si] for name, v in noise.items()},
-                        idx["cell_hw"][si], tw)
+                        idx["cell_hw"][si], tw, dtype)
         board[:, idx["write_idx"][si]] = out["context_vec"]
         outs.append(out)
     perm = idx["perm"]
@@ -208,7 +223,7 @@ def forward(params, cfg: SpairConfig, x, step, generator=None, noise=None):
     kls = independent_kl(z["posterior"], z_pres, cfg)
     kls["pres_dist"] = count_prior_kl(z_pres_prob, z_pres, step, cfg)
     recon = render(params, cfg, z_attr, z_where, z_depth, z_pres,
-                   cfg.image_shape[1:])
+                   cfg.image_shape[1:], compute_dtype(cfg)).to(torch.float32)
     loss, terms = loss_and_metrics(x, recon, kls, cfg)
 
     if cfg.pres_entropy_weight:

@@ -2,7 +2,9 @@
 ``spair_pytorch_tpu/ops/backbone.py``).
 
 Convs run in NCHW with OIHW kernels, PyTorch's own layout; the output is
-permuted to the JAX package's (B, grid_h, grid_w, F) feature grid. Module
+permuted to the JAX package's (B, grid_h, grid_w, F) feature grid. Under
+bf16 compute the input, weights and biases are cast in the forward, so the
+float32 weights stay the masters. Module
 names follow the reference state_dict (``net.conv_<i>``, ``net.conv_out``).
 """
 
@@ -13,6 +15,7 @@ from collections import OrderedDict
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -72,6 +75,15 @@ class Backbone(nn.Module):
         pt, pb, pl, pr = pads
         self.pad = nn.ZeroPad2d((pl, pr, pt, pb))
 
-    def forward(self, x_nchw):
-        """(B, C, H, W) -> features (B, grid_h, grid_w, n_out)."""
-        return self.net(self.pad(x_nchw)).permute(0, 2, 3, 1)
+    def forward(self, x_nchw, dtype=None):
+        """(B, C, H, W) -> features (B, grid_h, grid_w, n_out), computed in
+        ``dtype`` when given (and returned in it)."""
+        dtype = dtype or x_nchw.dtype
+        x = self.pad(x_nchw.to(dtype))
+        for m in self.net:
+            if isinstance(m, nn.Conv2d):
+                x = F.conv2d(x, m.weight.to(dtype), m.bias.to(dtype),
+                             m.stride)
+            else:
+                x = m(x)
+        return x.permute(0, 2, 3, 1)

@@ -1,14 +1,19 @@
-"""Paste-and-composite: the CUDA forward kernel and its plain version.
+"""Paste-and-composite: the CUDA kernels, their plain versions, autograd.
 
-``composite_forward`` is the port of ``spair_pytorch_tpu/ops/pallas/
-composite.py::composite_pallas`` (forward only). For CUDA tensors it launches
-the hand-written kernel in ``csrc/composite_fwd.cu`` or raises; for CPU
-tensors it runs ``composite_plain``, the chunked PyTorch compositor ported
-from ``models/render.py::composite_xla``, which is also the kernel's oracle.
+``composite`` is the port of ``spair_pytorch_tpu/ops/pallas/composite.py::
+composite_pallas``: a ``torch.autograd.Function`` whose forward is
+``composite_forward`` and whose backward is ``composite_backward``. For CUDA
+tensors those launch the hand-written kernels in ``csrc/composite_fwd.cu``
+and ``csrc/composite_bwd.cu`` or raise; for CPU tensors they run
+``composite_plain`` (the chunked PyTorch compositor ported from
+``models/render.py::composite_xla``) and ``composite_backward_plain`` (the
+Pallas backward's formulas as tensor code), which are also the kernels'
+oracles.
 
-The kernel is compiled with ``nvcc`` at first use into ``_build/`` (named by
-the source's hash, so an edited source rebuilds) and bound with ``ctypes``.
-Nothing is built or loaded at import time.
+The kernels are compiled with ``nvcc`` at first use into ``_build/``, one
+library per source, named by the source's hash (so an edited source
+rebuilds), and bound with ``ctypes``. Nothing is built or loaded at import
+time.
 """
 
 from __future__ import annotations
@@ -20,17 +25,21 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict
 
 import torch
 
-from spair_pytorch_tpu_torch.ops.stn import paste_weights
+from spair_pytorch_tpu_torch.ops.stn import _source_coords_paste, paste_weights
 
 _EPS = 1e-9
 _PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "composite_fwd.cu"
+SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
+           for name in ("composite_fwd", "composite_bwd")}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# shared memory a backward block aims at, then the most one may take
+_BWD_SMEM_BUDGETS = (64 * 1024, 227 * 1024)
 
 
 def composite_plain(color, alpha, importance, boxes, image_hw,
@@ -86,6 +95,76 @@ def composite_plain(color, alpha, importance, boxes, image_hw,
     return num, den
 
 
+def composite_backward_plain(color, alpha, importance, boxes, image_hw,
+                             dnum, dden, pres_gate=None, chunk: int = 16):
+    """The compositor's VJP in plain PyTorch: the formulas of the Pallas
+    backward (``_bwd_object``) as tensor code over the full canvas, where
+    the hat weights vanish outside each object's support, so no window is
+    needed. Not autograd: the box gradient uses the Pallas hat derivative,
+    -sign(src - a) where the weight is positive, with sign(0) = 0.
+
+    Inputs as ``composite_plain`` takes them, plus the cotangents dnum
+    (B, C, H, W) and dden (B, 1, H, W). Returns (dcolor, dalpha, dimp) in
+    the glimpse dtype and dbox (B, N, 4) float32; objects whose gate is 0
+    get exact zeros. Objects are taken ``chunk`` at a time."""
+    f32 = torch.float32
+    c = color.shape[2]
+    g = torch.cat([color, alpha, importance], dim=2).to(f32)
+    boxes, dnum, dden = boxes.to(f32), dnum.to(f32), dden.to(f32)
+    parts = [_backward_objects(g[:, i:i + chunk], boxes[:, i:i + chunk],
+                               dnum, dden, c, image_hw)
+             for i in range(0, g.shape[1], chunk)]
+    dg = torch.cat([p[0] for p in parts], dim=1)
+    dbox = torch.cat([p[1] for p in parts], dim=1)
+    if pres_gate is not None:
+        live = pres_gate != 0
+        dg = torch.where(live[:, :, None, None, None], dg, 0.0)
+        dbox = torch.where(live[:, :, None], dbox, 0.0)
+    dg = dg.to(color.dtype)
+    return dg[:, :, :c], dg[:, :, c:c + 1], dg[:, :, c + 1:], dbox
+
+
+def _backward_objects(g, boxes, dnum, dden, c: int, image_hw):
+    """dG (B, k, C+2, oh, ow) and dbox (B, k, 4) of k objects' glimpses g."""
+    oh, ow = g.shape[-2:]
+    ih, iw = image_hw
+    xt, yt, xs, ys = boxes.unbind(-1)
+    src_y = _source_coords_paste(yt, ys, ih, oh)               # (B, k, H)
+    src_x = _source_coords_paste(xt, xs, iw, ow)               # (B, k, W)
+    dy = src_y[..., None] - torch.arange(oh, dtype=g.dtype, device=g.device)
+    dx = src_x[..., None] - torch.arange(ow, dtype=g.dtype, device=g.device)
+    py = torch.clamp(1.0 - dy.abs(), min=0.0)                  # (B, k, H, oh)
+    px = torch.clamp(1.0 - dx.abs(), min=0.0)                  # (B, k, W, ow)
+
+    t = torch.einsum("bnha,bnkaq->bnkhq", py, g)
+    planes = torch.einsum("bnkhq,bnwq->bnkhw", t, px)          # (B,k,C+2,H,W)
+    col, alp = planes[:, :, :c], planes[:, :, c:c + 1]
+    impe = planes[:, :, c + 1:] + _EPS
+    dn = dnum[:, None]
+    dp = torch.cat([dn * alp * impe,
+                    torch.sum(dn * col * impe, dim=2, keepdim=True),
+                    torch.sum(dn * alp * col, dim=2, keepdim=True)
+                    + dden[:, None]], dim=2)
+
+    dt = torch.einsum("bnkhw,bnwq->bnkhq", dp, px)
+    dg = torch.einsum("bnha,bnkhq->bnkaq", py, dt)
+    dpy = torch.einsum("bnkhq,bnkaq->bnha", dt, g)
+    dpx = torch.einsum("bnkhq,bnkhw->bnwq", t, dp)
+
+    # hat-weight derivatives, dw/dsrc = -sign(src - a) where w > 0
+    ey = -torch.sign(dy) * (py > 0)
+    ex = -torch.sign(dx) * (px > 0)
+    gy = torch.sum(dpy * ey, dim=(-2, -1))
+    gys = torch.sum(dpy * ey * (src_y[..., None] - (oh - 1) * 0.5),
+                    dim=(-2, -1))
+    gx = torch.sum(dpx * ex, dim=(-2, -1))
+    gxs = torch.sum(dpx * ex * (src_x[..., None] - (ow - 1) * 0.5),
+                    dim=(-2, -1))
+    dbox = torch.stack([gx * (-(ow - 1.0) / xs), gy * (-(oh - 1.0) / ys),
+                        gxs * (-1.0 / xs), gys * (-1.0 / ys)], dim=-1)
+    return dg, dbox
+
+
 def _find_nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -94,39 +173,64 @@ def _find_nvcc() -> str:
         or "/usr/local/cuda"
     path = os.path.join(home, "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the composite kernel is built "
+        raise RuntimeError("nvcc not found: the composite kernels are built "
                            "with the CUDA toolkit's nvcc")
     return path
 
 
-def build_library(build_dir: Path = BUILD_DIR) -> Path:
-    """Compile ``csrc/composite_fwd.cu`` into ``build_dir`` unless a build
-    of the same source exists; returns the shared library's path. Raises
-    with nvcc's output if the build fails."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = Path(build_dir) / f"composite_fwd_{digest[:16]}.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
+def library_path(name: str, build_dir: Path = BUILD_DIR) -> Path:
+    """Where the build of ``SOURCES[name]`` lives: named by the hash of
+    the source and the nvcc flags."""
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return Path(build_dir) / f"{name}_{digest[:16]}.so"
+
+
+def build_library(build_dir: Path = BUILD_DIR) -> Dict[str, Path]:
+    """Compile every source in ``SOURCES`` that has no build of the same
+    hash in ``build_dir``, one nvcc process per source, all started
+    together; returns {name: shared library path}. Waits for every nvcc
+    it started, then raises with nvcc's output if any build failed."""
+    outs = {name: library_path(name, build_dir) for name in SOURCES}
+    todo = {name: out for name, out in outs.items() if not out.exists()}
+    if not todo:
+        return outs
+    Path(build_dir).mkdir(parents=True, exist_ok=True)
+    nvcc = _find_nvcc()
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True),
+                       tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("nvcc failed on " + "\n".join(failed))
+    return outs
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, once per process."""
-    lib = ctypes.CDLL(str(build_library()))
-    fn = lib.spair_composite_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.spair_cuda_error_string.argtypes = [ctypes.c_int]
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load one kernel library, once per process."""
+    lib = ctypes.CDLL(str(build_library()[name]))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if name == "composite_fwd":
+        lib.spair_composite_fwd.argtypes = (
+            [ptr] * 7 + [i32] * 7 + [ctypes.c_float, i32, ptr])
+        lib.spair_composite_fwd.restype = i32
+    else:
+        lib.spair_composite_bwd.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]
+        lib.spair_composite_bwd.restype = i32
+        lib.spair_composite_bwd_smem.argtypes = [i32] * 6
+        lib.spair_composite_bwd_smem.restype = ctypes.c_size_t
+    lib.spair_cuda_error_string.argtypes = [i32]
     lib.spair_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -157,7 +261,7 @@ def _check_cuda_inputs(color, alpha, importance, boxes, pres_gate, image_hw):
                              f"{pres_gate.dtype} {tuple(pres_gate.shape)}")
         tensors.append(pres_gate)
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("composite_forward takes contiguous tensors")
+        raise ValueError("the composite kernels take contiguous tensors")
     ih, iw = image_hw
     if min(ih, iw, oh, ow) < 2:
         raise ValueError("canvas and glimpse sides must be at least 2")
@@ -167,40 +271,46 @@ def _check_cuda_inputs(color, alpha, importance, boxes, pres_gate, image_hw):
     return b, n, c, oh, ow
 
 
+def _device_of(tensors, fn: str):
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: "
+                         f"{sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn} runs on cuda or cpu, got {device}")
+    return device
+
+
+def _raise_on(lib, err: int, name: str):
+    if err != 0:
+        msg = lib.spair_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
 def composite_forward(color, alpha, importance, boxes, image_hw,
                       win_rows=None, pres_gate=None, den_floor_n=None):
     """(num, den) of the gated reference-mode composite; the kernel on CUDA
-    tensors, ``composite_plain`` on CPU tensors.
+    tensors, ``composite_plain`` on CPU tensors. This is the raw forward,
+    outside autograd: ``composite`` is the differentiable entry.
 
     ``win_rows`` is accepted for parity with the TPU kernel's paste window;
     the gather kernel is exact without one. ``pres_gate`` (B, N) float32
     skips objects whose gate is 0; ``den_floor_n`` overrides the number of
-    objects in den's 1e-9 floor. No backward exists yet, so inputs that
-    require grad are refused while grad mode is on."""
-    tensors = [color, alpha, importance, boxes]
-    if pres_gate is not None:
-        tensors.append(pres_gate)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("composite_forward has no backward yet; call it "
-                           "under torch.no_grad()")
+    objects in den's 1e-9 floor."""
     if win_rows is not None and int(win_rows) < 1:
         raise ValueError(f"win_rows must be positive, got {win_rows}")
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
-    device = color.device
+    device = _device_of([color, alpha, importance, boxes, pres_gate],
+                        "composite_forward")
     if device.type == "cpu":
         return composite_plain(color, alpha, importance, boxes, image_hw,
                                pres_gate=pres_gate, den_floor_n=den_floor_n)
-    if device.type != "cuda":
-        raise ValueError(f"composite_forward runs on cuda or cpu, got "
-                         f"{device}")
 
     b, n, c, oh, ow = _check_cuda_inputs(color, alpha, importance, boxes,
                                          pres_gate, image_hw)
     ih, iw = image_hw
     floor_n = n if den_floor_n is None else int(den_floor_n)
-    lib = load_library()
+    lib = load_library("composite_fwd")
     num = torch.empty((b, c, ih, iw), dtype=torch.float32, device=device)
     den = torch.empty((b, 1, ih, iw), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
@@ -211,12 +321,97 @@ def composite_forward(color, alpha, importance, boxes, image_hw,
             None if pres_gate is None else pres_gate.data_ptr(),
             num.data_ptr(), den.data_ptr(), b, n, c, oh, ow, ih, iw,
             floor_n * _EPS, int(color.dtype == torch.bfloat16), stream)
-    if err != 0:
-        msg = lib.spair_cuda_error_string(err).decode()
-        raise RuntimeError(f"composite_fwd launch failed: CUDA error {err} "
-                           f"({msg})")
+    _raise_on(lib, err, "composite_fwd")
     composite_forward.launches += 1
     return num, den
 
 
 composite_forward.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_tile_rows(c: int, oh: int, ow: int, ih: int, iw: int) -> int:
+    """Canvas rows per tile of the backward kernel: the most (up to 32)
+    whose shared memory fits the first budget that admits one row."""
+    smem = load_library("composite_bwd").spair_composite_bwd_smem
+    for budget in _BWD_SMEM_BUDGETS:
+        for rows in range(min(32, ih), 0, -1):
+            if smem(c, oh, ow, ih, iw, rows) <= budget:
+                return rows
+    raise ValueError(f"glimpses of {c + 2} x {oh} x {ow} and a {ih} x {iw} "
+                     f"canvas do not fit the backward kernel's shared memory")
+
+
+def composite_backward(color, alpha, importance, boxes, image_hw, dnum, dden,
+                       pres_gate=None):
+    """(dcolor, dalpha, dimp, dbox), the VJP of ``composite_forward`` for
+    the cotangents dnum (B, C, H, W) and dden (B, 1, H, W); the kernel on
+    CUDA tensors, ``composite_backward_plain`` on CPU tensors."""
+    device = _device_of([color, alpha, importance, boxes, pres_gate, dnum,
+                         dden], "composite_backward")
+    if device.type == "cpu":
+        return composite_backward_plain(color, alpha, importance, boxes,
+                                        image_hw, dnum, dden, pres_gate)
+
+    b, n, c, oh, ow = _check_cuda_inputs(color, alpha, importance, boxes,
+                                         pres_gate, image_hw)
+    ih, iw = image_hw
+    for name, t, ch in (("dnum", dnum, c), ("dden", dden, 1)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, ch, ih, iw) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"{(b, ch, ih, iw)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    lib = load_library("composite_bwd")
+    tile_rows = _bwd_tile_rows(c, oh, ow, ih, iw)
+    dg = torch.empty((b, n, c + 2, oh, ow), dtype=color.dtype, device=device)
+    dbox = torch.empty((b, n, 4), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.spair_composite_bwd(
+            color.data_ptr(), alpha.data_ptr(), importance.data_ptr(),
+            boxes.data_ptr(),
+            None if pres_gate is None else pres_gate.data_ptr(),
+            dnum.data_ptr(), dden.data_ptr(), dg.data_ptr(), dbox.data_ptr(),
+            b, n, c, oh, ow, ih, iw, tile_rows,
+            int(color.dtype == torch.bfloat16), stream)
+    _raise_on(lib, err, "composite_bwd")
+    composite_backward.launches += 1
+    return dg[:, :, :c], dg[:, :, c:c + 1], dg[:, :, c + 1:], dbox
+
+
+composite_backward.launches = 0
+
+
+class CompositeFunction(torch.autograd.Function):
+    """Forward ``composite_forward``, backward ``composite_backward``: the
+    kernels on CUDA tensors, their plain versions on CPU tensors. Saves the
+    glimpses, boxes and gate (not the pasted planes, which the backward
+    recomputes, as the TPU kernel does). The gate gets no gradient, as in
+    the JAX custom VJP."""
+
+    @staticmethod
+    def forward(ctx, color, alpha, importance, boxes, pres_gate, image_hw,
+                win_rows, den_floor_n):
+        ctx.image_hw = image_hw
+        ctx.save_for_backward(color, alpha, importance, boxes, pres_gate)
+        return composite_forward(color, alpha, importance, boxes, image_hw,
+                                 win_rows, pres_gate, den_floor_n)
+
+    @staticmethod
+    def backward(ctx, dnum, dden):
+        color, alpha, importance, boxes, pres_gate = ctx.saved_tensors
+        grads = composite_backward(color, alpha, importance, boxes,
+                                   ctx.image_hw, dnum.contiguous(),
+                                   dden.contiguous(), pres_gate)
+        return (*grads, None, None, None, None)
+
+
+def composite(color, alpha, importance, boxes, image_hw, win_rows=None,
+              pres_gate=None, den_floor_n=None):
+    """Differentiable (num, den) of the gated reference-mode composite: the
+    entry ``models/render.py::render`` takes. Arguments as
+    ``composite_forward``; gradients reach the glimpses and boxes."""
+    return CompositeFunction.apply(color, alpha, importance, boxes,
+                                   pres_gate, tuple(image_hw), win_rows,
+                                   den_floor_n)

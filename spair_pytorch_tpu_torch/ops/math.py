@@ -1,7 +1,8 @@
 """Latent-math primitives (counterpart of ``spair_pytorch_tpu/ops/math.py``).
 
-Forward semantics only: the custom gradients the JAX package attaches to the
-analytical sigmoid and the BCE belong to the training slice.
+The analytical sigmoid carries the JAX package's custom derivative as an
+``autograd.Function``; the BCE keeps ``F.binary_cross_entropy``, whose
+native backward is the one the JAX package's custom VJP reproduces.
 """
 
 from __future__ import annotations
@@ -16,11 +17,32 @@ def latent_to_mean_std(latent):
     return mean, 2.0 * torch.sigmoid(torch.clamp(log_std, -10.0, 10.0))
 
 
+class AnalyticalSigmoid(torch.autograd.Function):
+    """1 / (exp(-x) + 1) with the derivative s * (1 - s).
+
+    Autograd through the expression gives exp(-x) / (exp(-x) + 1)^2, which
+    is inf / inf = NaN once x < ~-88 in f32; the decoder's colour logits
+    drift that negative for black pixels during training. s * (1 - s) is
+    the same derivative without the overflow (the JAX package's custom
+    JVP, ``spair_pytorch_tpu/ops/math.py::_analytical_sigmoid``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (torch.exp(-x) + 1.0)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return s * (1.0 - s) * g
+
+
 def clamped_sigmoid(logit, use_analytical: bool = False):
     """sigmoid(clamp(logit, -10, 10)); with ``use_analytical`` the unclamped
     1 / (exp(-x) + 1) the decoder output path uses."""
     if use_analytical:
-        return 1.0 / (torch.exp(-logit) + 1.0)
+        return AnalyticalSigmoid.apply(logit)
     return torch.sigmoid(torch.clamp(logit, -10.0, 10.0))
 
 
@@ -47,5 +69,6 @@ def bernoulli_kl(prob_q, prob_p):
 def binary_cross_entropy_sum(recon, target):
     """Sum-reduced BCE. ``F.binary_cross_entropy`` clamps each log term at
     -100, which is the semantics the JAX package emulates, and its native
-    backward is the one that package's custom VJP reproduces."""
+    backward, (r - t) / max(r (1 - r), 1e-12), is the one that package's
+    custom VJP reproduces: finite at recon values of exactly 0 and 1."""
     return F.binary_cross_entropy(recon, target, reduction="sum")

@@ -37,17 +37,32 @@ class MLP(nn.Module):
     def heads(self):
         return list(self.output_layers) if self.multi else [self.out]
 
-    def forward(self, x, packed: bool = True):
+    def forward(self, x, packed: bool = True, dtype=None):
         """x (..., n_in) -> tuple of head outputs (..., head_dim).
 
         With ``packed`` the heads run as one GEMM over their concatenated
-        weights, split back afterwards (same columns, fewer launches)."""
+        weights, split back afterwards (same columns, fewer launches). With
+        ``dtype`` (bf16 compute) the input, weights and biases are cast to
+        it, the float32 weights staying the masters, and the head outputs
+        are promoted back to float32."""
+        def dense(v, w, b):
+            if dtype is not None:
+                w, b = w.to(dtype), b.to(dtype)
+            return F.linear(v, w, b)
+
+        if dtype is not None:
+            x = x.to(dtype)
         trunk = self.body if self.multi else self
         for i in range(self.n_hidden):
-            x = torch.relu(getattr(trunk, f"dense{i}")(x))
+            layer = getattr(trunk, f"dense{i}")
+            x = torch.relu(dense(x, layer.weight, layer.bias))
         heads = self.heads()
         if packed and len(heads) > 1:
             w = torch.cat([h.weight for h in heads], dim=0)
             b = torch.cat([h.bias for h in heads], dim=0)
-            return tuple(torch.split(F.linear(x, w, b), self.widths, dim=-1))
-        return tuple(h(x) for h in heads)
+            outs = torch.split(dense(x, w, b), self.widths, dim=-1)
+        else:
+            outs = [dense(x, h.weight, h.bias) for h in heads]
+        if dtype is not None:
+            outs = [o.to(torch.float32) for o in outs]
+        return tuple(outs)

@@ -22,9 +22,14 @@ def _source_coords_crop(t, s, out_size: int, in_size: int):
 
 def _source_coords_paste(t, s, out_size: int, in_size: int):
     """Glimpse coordinate sampled by each canvas pixel of a paste: the
-    inverse affine of the crop, u = (u' - (2t - 1)) / s."""
+    inverse affine of the crop, u = (u' - (2t - 1)) / s.
+
+    The divisor is a tensor: CUDA divides by a Python scalar as a multiply
+    by its reciprocal, an ulp off the correctly rounded quotient the
+    compositor kernels take, and at an integer coordinate an ulp flips the
+    sign of the hat derivative in the box gradient."""
     i = torch.arange(out_size, dtype=torch.float32, device=t.device)
-    u_out = 2.0 * i / (out_size - 1) - 1.0
+    u_out = 2.0 * i / torch.full_like(i, out_size - 1) - 1.0
     u = (u_out - (2.0 * t[..., None] - 1.0)) / s[..., None]
     return (u + 1.0) * (in_size - 1) / 2.0
 
@@ -55,9 +60,12 @@ def paste_weights(boxes, object_shape, image_hw):
     return _hat(sy, oh), _hat(sx, ow)
 
 
-def crop_glimpses(image, boxes, object_shape):
-    """image (B, C, H, W), boxes (B, N, 4) -> glimpses (B, N, C, oh, ow)."""
+def crop_glimpses(image, boxes, object_shape, dtype=None):
+    """image (B, C, H, W), boxes (B, N, 4) -> glimpses (B, N, C, oh, ow).
+    With ``dtype`` (bf16 compute) both einsums run in it."""
     ih, iw = image.shape[-2:]
     wy, wx = crop_weights(boxes, object_shape, (ih, iw))
+    if dtype is not None:
+        image, wy, wx = image.to(dtype), wy.to(dtype), wx.to(dtype)
     tmp = torch.einsum("bnyh,bchw->bncyw", wy, image)
     return torch.einsum("bncyw,bnxw->bncyx", tmp, wx)

@@ -1,10 +1,13 @@
-"""Parameters carried over from the JAX package, without jax.
+"""Parameters and optimizer state carried over from the JAX package,
+without jax.
 
 ``state_dict_from_jax`` maps the JAX parameter pytree (as numpy arrays) to
 the reference state_dict layout, exactly as ``spair_pytorch_tpu/utils/
 interop.py::to_torch_state_dict`` does: conv kernels HWIO -> OIHW, linear
 weights (in, out) -> (out, in). The port's modules carry those names, so
-the result loads with ``load_state_dict(strict=True)``.
+the result loads with ``load_state_dict(strict=True)``. ``adam_state_from_
+jax`` maps optax's Adam moments through the same transposes onto torch
+Adam's per-parameter state.
 """
 
 from __future__ import annotations
@@ -57,3 +60,39 @@ def load_jax_params(model: torch.nn.Module, params_np) -> torch.nn.Module:
           state_dict_from_jax(params_np).items()}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _find_adam_state(tree):
+    """The ScaleByAdamState (count, mu, nu) inside an optax state tree."""
+    if all(hasattr(tree, f) for f in ("count", "mu", "nu")):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for sub in tree:
+            found = _find_adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_jax(opt_state_np, model: torch.nn.Module):
+    """optax Adam state (numpy leaves, alone or inside a chain) -> the
+    ``state`` entry of torch Adam's state_dict for an optimizer over
+    ``model.parameters()``: {index: {step, exp_avg, exp_avg_sq}}."""
+    adam = _find_adam_state(opt_state_np)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState in the given state")
+    mu, nu = state_dict_from_jax(adam.mu), state_dict_from_jax(adam.nu)
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    return {i: {"step": step.clone(),
+                "exp_avg": torch.from_numpy(mu[name]).to(p.device),
+                "exp_avg_sq": torch.from_numpy(nu[name]).to(p.device)}
+            for i, (name, p) in enumerate(model.named_parameters())}
+
+
+def load_jax_adam_state(optimizer: torch.optim.Optimizer,
+                        model: torch.nn.Module, opt_state_np):
+    """Load optax Adam moments into a torch Adam over ``model``."""
+    sd = optimizer.state_dict()
+    sd["state"] = adam_state_from_jax(opt_state_np, model)
+    optimizer.load_state_dict(sd)
+    return optimizer

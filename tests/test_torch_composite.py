@@ -2,9 +2,10 @@
 
 JAX's ``composite_pallas`` runs in interpret mode on the CPU, as the JAX
 package's own tests run it. Tolerances: f32 relative error 1e-4 (bench.py's
-forward gate, measured as max |port - jax| / max(1, max |jax|)); bf16
-glimpses against f32 truth 3e-2. The CUDA kernel itself is compared with
-its plain version on a card, in test_torch_kernel_gpu.py."""
+forward gate, measured as max |port - jax| / max(1, max |jax|)), 1e-3 on
+gradients; bf16 glimpses against f32 truth 3e-2. The CUDA kernels
+themselves are compared with their plain versions on a card, in
+test_torch_kernel_gpu.py."""
 
 import importlib
 
@@ -104,15 +105,28 @@ def test_all_gated_gives_zero_num_and_floor_den():
     np.testing.assert_allclose(den.numpy(), 9e-9, rtol=1e-6)
 
 
-def test_refuses_inputs_that_require_grad():
-    color, alpha, imp, boxes, _ = map(
-        lambda a: None if a is None else t(a), make_inputs(7))
-    color.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        K.composite_forward(color, alpha, imp, boxes, (32, 32))
-    with torch.no_grad():
-        num, _ = K.composite_forward(color, alpha, imp, boxes, (32, 32))
-    assert not num.requires_grad
+def test_gradients_flow_through_composite():
+    """``composite`` on CPU tensors: the autograd Function over the plain
+    forward and backward gives autograd's gradients through the plain
+    compositor, to the glimpses and boxes, and none to the gate."""
+    color, alpha, imp, boxes, gate = map(
+        lambda a: None if a is None else t(a), make_inputs(7, gated=True))
+    dnum, dden = torch.randn(2, 1, 32, 32), torch.randn(2, 1, 32, 32)
+    gate.requires_grad_(True)
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_(True)
+                  for a in (color, alpha, imp, boxes)]
+        num, den = fn(*leaves, (32, 32), pres_gate=gate)
+        torch.autograd.backward((num, den), (dnum, dden))
+        return [a.grad for a in leaves]
+
+    got = grads(K.composite)
+    assert gate.grad is None
+    want = grads(K.composite_plain)
+    assert all(g is not None for g in got)
+    for g, w in zip(got, want):
+        assert_close(g, w.numpy(), rel=1e-3)
 
 
 def test_refuses_devices_it_has_no_path_for():

@@ -179,15 +179,28 @@ def test_eval_step_is_forward_without_grad():
 
 
 def test_forward_with_grad_refuses_the_kernel_path():
-    """Backends 'auto'/'pallas' have no backward yet; 'xla' does."""
-    cfg = tiny_config(inference_mode="independent", render_backend="auto")
-    _, model, x, _ = setup(cfg, seed=19)
-    with pytest.raises(RuntimeError, match="no backward"):
-        forward(model, cfg, t(x), 0, torch.Generator().manual_seed(0))
-    loss, _ = forward(model, dataclasses.replace(cfg, render_backend="xla"),
-                      t(x), 0, torch.Generator().manual_seed(0))
-    loss.backward()
+    """Backend 'auto' now trains: its gradients (the kernels' autograd
+    Function, here their plain versions) equal autograd's through the
+    'xla' compositor. The backend that has no port, 'pallas_v3', is
+    refused."""
+    cfg = tiny_config(inference_mode="independent", render_backend="auto",
+                      pres_gate_threshold=0.3)
+    _, model, x, noise = setup(cfg, seed=19)
+
+    def grads(c):
+        model.zero_grad(set_to_none=True)
+        loss, _ = forward(model, c, t(x), 1500, noise=tnoise(noise))
+        loss.backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    got = grads(cfg)
+    want = grads(dataclasses.replace(cfg, render_backend="xla"))
     assert model.object_decoder.out.weight.grad is not None
+    for k, w in want.items():
+        assert_close(got[k], w.numpy(), rel=1e-3)
+    with pytest.raises(NotImplementedError, match="pallas_v3"):
+        forward(model, dataclasses.replace(cfg, render_backend="pallas_v3"),
+                t(x), 0, torch.Generator().manual_seed(0))
 
 
 def test_sample_noise_shapes_match_jax():

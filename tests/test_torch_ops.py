@@ -239,7 +239,10 @@ def test_port_imports_without_jax():
             "spair_pytorch_tpu_torch.models.spair, "
             "spair_pytorch_tpu_torch.ops.kernels.composite, "
             "spair_pytorch_tpu_torch.parallel, spair_pytorch_tpu_torch.data, "
-            "spair_pytorch_tpu_torch.utils.interop\n"
+            "spair_pytorch_tpu_torch.utils.interop, "
+            "spair_pytorch_tpu_torch.parallel.train_step, "
+            "spair_pytorch_tpu_torch.metrics, "
+            "spair_pytorch_tpu_torch.utils.debug\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.'))\n"
             "assert not bad, bad\n")
