@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (spair_pytorch_tpu_torch).
 
-Drives the port's serving path and its training step at paper128 width on
-one CUDA card, with random weights from the preset's seed:
+Drives the port's serving path, its training step and its training entry
+point through the banded compositor ('pallas_v3') at paper128 width on one
+CUDA card, with random weights from the preset's seed:
 
   1. device     the card's name and power limit (nvidia-smi);
-  2. build      compiles csrc/composite_fwd.cu and csrc/composite_bwd.cu,
-                one nvcc each, started together;
+  2. build      compiles csrc/composite_fwd.cu, composite_bwd.cu,
+                composite_v3_fwd.cu and composite_v3_bwd.cu, one nvcc each,
+                started together;
   3. kernel     the composite kernel against its plain PyTorch version at
                 paper128 shapes (B=32, N=121, C=1, 28x28 glimpses, 128x128
                 canvas): f32 ungated, f32 gated, all gated, bf16 glimpses,
@@ -36,7 +38,22 @@ one CUDA card, with random weights from the preset's seed:
                 inputs that the trained state's inference and decoder make
                 for a generated batch of 128 (f32 glimpses, the 0.01 gate);
  10. times      the backward kernel against its plain version at B=32 and
-                B=128, each first held against it on the timed inputs.
+                B=128, each first held against it on the timed inputs;
+ 11. v3         K3 and K4 (csrc/composite_v3_*.cu) against their plain
+                versions at paper128 shapes, B=32 and B=128, boxes from the
+                model's parameterization: f32 ungated, f32 with about half
+                the objects zeroed as the gate zeroes them, bf16 glimpses
+                against f32 truth, all gated; K3 against K1 on the same
+                inputs;
+ 12. v3 times   K1, K2, K3, K4 and the plain K3/K4 on the same inputs in one
+                call, at B=32 and B=128, with each kernel's bound;
+ 13. v3 path    the training entry point, train(), at paper128, bf16,
+                wavefront, gate 0.01, b128, render_backend='pallas_v3',
+                steps_per_call=10: 20 steps with checkpoints and held-out
+                evaluation every 10, a restore checked tensor for tensor,
+                then a resumed run of 10 more; K3 and K4 launch counts, the
+                eval keys, K3/K4 against their plain versions on the path's
+                own compositor inputs; then the same step timed alone.
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
 cuDNN convs in full f32), so kernels and plain versions are compared on the
@@ -50,6 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -62,6 +80,18 @@ GRAD_BAR = 1e-3       # f32 gradients (bench.py's gradient gate)
 BF16_GRAD_BAR = 6e-2  # bf16 glimpses' gradients against f32 truth
 B, N, C, OH, OW, HW, WIN = 32, 121, 1, 28, 28, (128, 128), 64
 TRAIN_B, STEPS_PER_CALL, TRAIN_CALLS = 128, 10, 3
+# the paper128 model's box parameterization, which fixes K3/K4's bands:
+# 11x11 grid of 12-px cells, centres in the cell + [-0.5, 1.5], scales up to
+# max_hw * anchor / H = 48 / 128
+GRID, CELL, BOUNDS = (11, 11), 12, (-0.5, 1.5, 48 / 128)
+V3_GEOM = (HW, CELL, GRID, BOUNDS)
+# the card's peaks for the bound (H100 SXM data sheet, at 700 W)
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# the JAX package's evaluate() keys, without a calibrated threshold
+EVAL_KEYS = ("ap_at_30", "ap_at_40", "ap_at_50", "ap_at_60",
+             "bbox_ap_center", "bbox_average_precision",
+             "count_exact_accuracy", "det_count_acc_50", "det_count_acc_70",
+             "object_count_error")
 
 
 def phase(name, msg):
@@ -473,6 +503,301 @@ def backward_times(K, card, dev):
     return times
 
 
+def banded_glimpses(b, gen, dev):
+    """paper128 glimpses (as random_glimpses draws them) on boxes from the
+    model's parameterization: each object's centre in its cell + [-0.5,
+    1.5], scales in [0.05, 0.375], so every box lies in its row's band."""
+    color, alpha, imp, _ = random_glimpses(b, N, gen, dev)
+
+    def u(lo, hi):
+        return torch.rand((b, N), generator=gen, device=dev) * (hi - lo) + lo
+    h = torch.arange(GRID[0], device=dev).repeat_interleave(GRID[1])
+    w = torch.arange(GRID[1], device=dev).repeat(GRID[0])
+    boxes = torch.stack([(w + u(*BOUNDS[:2])) * CELL / HW[1],
+                         (h + u(*BOUNDS[:2])) * CELL / HW[0],
+                         u(0.05, BOUNDS[2]), u(0.05, BOUNDS[2])], dim=-1)
+    return color, alpha, imp, boxes.contiguous()
+
+
+def masked(inputs, gate):
+    """The glimpses zeroed where the gate is 0, as render masks them."""
+    g = gate[:, :, None, None, None]
+    return (*(t * g for t in inputs[:3]), inputs[3])
+
+
+def v3_held(V, tag, inputs, cotangents):
+    """K3 and K4 against their plain versions on one set of inputs; returns
+    their max abs errors."""
+    b = inputs[0].shape[0]
+    e3 = check(tag, f"K3 B={b}", F32_BAR, V.composite_v3_forward(
+        *inputs, *V3_GEOM), V.composite_v3_plain(*inputs, *V3_GEOM))
+    e4 = check(tag, f"K4 B={b}", GRAD_BAR, V.composite_v3_backward(
+        *inputs, *V3_GEOM, *cotangents), V.composite_v3_backward_plain(
+            *inputs, *V3_GEOM, *cotangents))
+    return e3, e4
+
+
+def v3_phase(V, K, dev):
+    """K3 and K4 against their plain versions at paper128 shapes, B=32 and
+    B=128; returns the largest f32 absolute error of each."""
+    errs3, errs4 = [], []
+    for b in (32, 128):
+        gen = torch.Generator(device=dev).manual_seed(300 + b)
+        inputs = banded_glimpses(b, gen, dev)
+        cot = random_cotangents(b, gen, dev)
+        e3, e4 = v3_held(V, "v3", inputs, cot)
+        errs3.append(e3)
+        errs4.append(e4)
+
+        gate = (torch.rand((b, N), generator=gen, device=dev) > 0.5).float()
+        phase("v3", f"gated B={b}: {int(gate.sum())} of {b * N} objects "
+                    f"live, the rest zeroed")
+        e3, e4 = v3_held(V, "v3", masked(inputs, gate), cot)
+        errs3.append(e3)
+        errs4.append(e4)
+
+        bf = tuple(t.to(torch.bfloat16) for t in inputs[:3])
+        check("v3", f"K3 B={b} bf16 glimpses", BF16_BAR,
+              V.composite_v3_forward(*bf, inputs[3], *V3_GEOM),
+              V.composite_v3_plain(*inputs, *V3_GEOM))
+        check("v3", f"K4 B={b} bf16 glimpses", BF16_GRAD_BAR,
+              V.composite_v3_backward(*bf, inputs[3], *V3_GEOM, *cot),
+              V.composite_v3_backward_plain(*inputs, *V3_GEOM, *cot))
+
+        # all gated: every glimpse zeroed
+        zero = masked(inputs, torch.zeros_like(gate))
+        num, den = V.composite_v3_forward(*zero, *V3_GEOM)
+        torch.cuda.synchronize()
+        floor = torch.full_like(den, N * 1e-9)
+        if not (bool((num == 0).all())
+                and torch.allclose(den, floor, rtol=1e-6, atol=0)):
+            raise AssertionError("all-gated K3 is not num=0, den=N*1e-9")
+        grads = V.composite_v3_backward(*zero, *V3_GEOM, *cot)
+        torch.cuda.synchronize()
+        if not all(bool((grads[i] == 0).all()) for i in (0, 1, 3)):
+            raise AssertionError("all-gated K4: dcolor, dalpha or dbox != 0")
+        errs4.append(check(
+            "v3", f"K4 B={b} all gated, importance gradient py^T dden px",
+            GRAD_BAR, grads[2:3], V.composite_v3_backward_plain(
+                *zero, *V3_GEOM, *cot)[2:3]))
+        # what render hands upstream: gradients through the gate's mask
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        out = V.composite_v3(*masked(leaves, torch.zeros_like(gate)),
+                             *V3_GEOM)
+        torch.autograd.backward(out, cot)
+        if not all(bool((t.grad == 0).all()) for t in leaves):
+            raise AssertionError("all-gated composite_v3 passed a gradient")
+        phase("v3", f"all gated B={b}: num == 0, den == "
+                    f"{float(den[0, 0, 0, 0]):.6e}; dcolor, dalpha, dbox == "
+                    f"0; every gradient through the gate mask == 0")
+
+        with torch.no_grad():
+            check("v3", f"K3 against K1 B={b}", F32_BAR,
+                  V.composite_v3_forward(*inputs, *V3_GEOM),
+                  K.composite_forward(*inputs, HW, WIN))
+    return max(errs3), max(errs4)
+
+
+def bound(b, c, glimpse_bytes, forward, pairs):
+    """(least ms, 'bytes' or 'operations') for one compositor call: each
+    input read once and each output written once, against the card's HBM
+    rate; and an estimate of the gather's arithmetic (per object and
+    support pixel, (C + 2) bilinear samples of 9 operations and ~3C + 2
+    more; four times that in the backward) against the f32 peak."""
+    glimpses = b * N * (c + 2) * OH * OW * glimpse_bytes
+    canvas = b * (c + 1) * HW[0] * HW[1] * 4
+    boxes = b * N * 4 * 4
+    if forward:
+        moved = glimpses + boxes + canvas
+        ops = pairs * (9 * (c + 2) + 3 * c + 2)
+    else:  # glimpses, boxes, dnum, dden in; dG, dbox out
+        moved = 2 * glimpses + 2 * boxes + canvas
+        ops = 4 * pairs * (9 * (c + 2) + 3 * c + 2)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def support_pairs(boxes, band_rows=None):
+    """Canvas pixels inside each object's paste support (sy in (-1, oh),
+    sx in (-1, ow)), summed over the objects; with ``band_rows`` (N, H)
+    only the rows of each object's band count."""
+    from spair_pytorch_tpu_torch.ops.stn import _source_coords_paste
+    xt, yt, xs, ys = boxes.unbind(-1)
+    sy = _source_coords_paste(yt, ys, HW[0], OH)
+    sx = _source_coords_paste(xt, xs, HW[1], OW)
+    rows = ((sy > -1) & (sy < OH)).float()
+    if band_rows is not None:
+        rows = rows * band_rows
+    cols = ((sx > -1) & (sx < OW)).float()
+    return float((rows.sum(-1) * cols.sum(-1)).sum())
+
+
+def v3_times(V, K, card, dev):
+    """CUDA-event ms of K1, K2, K3, K4 and the plain K3/K4 on the same
+    inputs, in turns, at B=32 and B=128, with each kernel's bound. Each
+    kernel is first held against its plain version on the timed inputs."""
+    times = {}
+    band, starts = V.band_geometry(HW, CELL, *BOUNDS, OH, GRID[0])
+    y = torch.arange(HW[0], device=dev)
+    lo = torch.as_tensor(starts, device=dev).repeat_interleave(GRID[1])
+    band_rows = ((y >= lo[:, None]) & (y < lo[:, None] + band)).float()
+    for b in (32, 128):
+        gen = torch.Generator(device=dev).manual_seed(400 + b)
+        inputs = banded_glimpses(b, gen, dev)
+        dnum, dden = random_cotangents(b, gen, dev)
+        v3_held(V, "time", inputs, (dnum, dden))
+        held_at(K, inputs, random_gate(b, gen, dev), (dnum, dden))
+        fns = {
+            "K1": lambda: K.composite_forward(*inputs, HW, WIN),
+            "plain K1": lambda: K.composite_plain(*inputs, HW),
+            "K3": lambda: V.composite_v3_forward(*inputs, *V3_GEOM),
+            "plain K3": lambda: V.composite_v3_plain(*inputs, *V3_GEOM),
+            "K2": lambda: K.composite_backward(*inputs, HW, dnum, dden),
+            "plain K2": lambda: K.composite_backward_plain(*inputs, HW, dnum,
+                                                           dden),
+            "K4": lambda: V.composite_v3_backward(*inputs, *V3_GEOM, dnum,
+                                                  dden),
+            "plain K4": lambda: V.composite_v3_backward_plain(
+                *inputs, *V3_GEOM, dnum, dden),
+        }
+        got = {k: [] for k in fns}
+        with torch.no_grad():
+            for k in ("plain K1", "plain K3", "K3", "K1", "plain K2",
+                      "plain K4", "K4", "K2", "K2", "K4", "plain K4",
+                      "plain K2", "K1", "K3", "plain K3", "plain K1"):
+                got[k].append(cuda_ms(fns[k], 5 if k.startswith("plain")
+                                      else 20))
+        t = {k: sum(v) / len(v) for k, v in got.items()}
+        full = support_pairs(inputs[3])
+        clipped = support_pairs(inputs[3], band_rows)
+        t["bound"] = {"K1": bound(b, C, 4, True, full),
+                      "K3": bound(b, C, 4, True, clipped),
+                      "K2": bound(b, C, 4, False, full),
+                      "K4": bound(b, C, 4, False, clipped)}
+        times[b] = t
+        for k in ("K1", "K3", "K2", "K4"):
+            bms, by = t["bound"][k]
+            plain = f", plain {t['plain ' + k]:.4f} ms"
+            phase("time", f"{k} B={b}: {t[k]:.4f} ms{plain}; bound "
+                          f"{bms:.4f} ms ({by}), {bms / t[k]:.1%} of it "
+                          f"({card})")
+        phase("time", f"B={b}: K3/K1 {t['K3'] / t['K1']:.3f}, K4/K2 "
+                      f"{t['K4'] / t['K2']:.3f}")
+    return times
+
+
+def adam_tensors(state):
+    return [v for s in state.optimizer.state_dict()["state"].values()
+            for v in s.values() if torch.is_tensor(v)]
+
+
+def v3_path_phase(V, K, card, dev):
+    """The slice's path: train() at paper128, bf16, wavefront, gate 0.01,
+    b128, 'pallas_v3', steps_per_call=10, with checkpoints, resume and
+    held-out evaluation; returns the (K3, K4) launches of the run."""
+    import os
+    import tempfile
+
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.data import glyph_bank
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+    from spair_pytorch_tpu_torch.train import data_config, train
+    from spair_pytorch_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cfg = PRESETS["paper128"](batch_size=TRAIN_B, inference_mode="wavefront",
+                              compute_dtype="bfloat16",
+                              pres_gate_threshold=0.01,
+                              render_backend="pallas_v3")
+    run = dict(checkpoint_every=10, eval_every=10, eval_batches=2,
+               steps_per_call=STEPS_PER_CALL, digits="font", device=dev)
+    with tempfile.TemporaryDirectory() as logdir:
+        counters = (V.composite_v3_forward, V.composite_v3_backward,
+                    K.composite_forward, K.composite_backward)
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        first = train(cfg, steps=20, logdir=logdir, **run)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ckpts = CheckpointManager(os.path.join(logdir, "checkpoints"))
+        restored = ckpts.restore(create_train_state(cfg, device=dev))
+        same = (int(restored.step) == int(first.step) == 20
+                and torch.equal(restored.generator.get_state(),
+                                first.generator.get_state())
+                and all(torch.equal(p, q) for p, q in zip(
+                    restored.model.parameters(), first.model.parameters()))
+                and all(torch.equal(p, q) for p, q in zip(
+                    adam_tensors(restored), adam_tensors(first))))
+        if not same:
+            raise AssertionError("the restored state differs from the saved")
+        phase("path", f"checkpoints {ckpts.all_steps()}; the restored state "
+                      f"equals the saved one tensor for tensor (parameters, "
+                      f"{len(adam_tensors(first))} Adam tensors, generator, "
+                      f"step 20)")
+        t2 = time.perf_counter()
+        last = train(cfg, steps=10, logdir=logdir, **run)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = tuple(fn.launches for fn in counters)
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    losses = {r["step"]: r["losses/total"] for r in rows
+              if "losses/total" in r}
+    evals = [r for r in rows if "eval/ap_at_50" in r]
+    if int(last.step) != 30 or sorted(losses) != list(range(30)) or not all(
+            math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"step {int(last.step)}, losses {losses}")
+    for r in evals:
+        keys = sorted(k[len("eval/"):] for k in r if k.startswith("eval/"))
+        if keys != sorted(EVAL_KEYS) or not all(
+                math.isfinite(r[f"eval/{k}"]) for k in keys):
+            raise AssertionError(f"eval row at {r['step']}: {r}")
+    eval_forwards = len(evals) * run["eval_batches"]
+    want = (30 + eval_forwards, 30, 0, 0)
+    phase("path", f"30 train() steps at paper128 bf16 wavefront gate 0.01 "
+                  f"b{TRAIN_B} pallas_v3: losses {losses[0]:.1f} -> "
+                  f"{losses[29]:.1f}, all finite; evals at "
+                  f"{[r['step'] for r in evals]}, finite, the JAX key set; "
+                  f"launches K3 {launches[0]}, K4 {launches[1]}, K1 "
+                  f"{launches[2]}, K2 {launches[3]} (expected {want})")
+    if launches != want or [r["step"] for r in evals] != [10, 20, 30]:
+        raise AssertionError("K3/K4 launch counts or eval steps are off")
+    phase("path", f"train() wall clock, host clock, checkpoints and evals "
+                  f"included: {(t1 - t0) * 1e3 / 20:.3f} ms/step over the "
+                  f"first 20 steps (cold), {(t3 - t2) * 1e3 / 10:.3f} ms/step "
+                  f"over the resumed 10 ({card})")
+
+    bank = torch.as_tensor(glyph_bank((14, 14)), device=dev)
+    inputs, gate = main_path_inputs(last, cfg, data_config(cfg), bank)
+    phase("path", f"the path's compositor inputs: glimpses "
+                  f"{inputs[0].dtype}, {int(gate.sum())} of {gate.numel()} "
+                  f"objects live")
+    v3_held(V, "path", masked(inputs, gate), random_cotangents(
+        TRAIN_B, torch.Generator(device=dev).manual_seed(6), dev))
+
+    # the same step alone, CUDA events over 2 calls of 10 after a warmup,
+    # as phase 9 times the K1/K2 step
+    step_fn = make_train_step(cfg, datagen=(data_config(cfg), bank),
+                              steps_per_call=STEPS_PER_CALL)
+    state = create_train_state(cfg, device=dev)
+    state, _ = step_fn(state)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(2):
+        state, m = step_fn(state)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (2 * STEPS_PER_CALL)
+    phase("path", f"pallas_v3 train step: {ms:.3f} ms/step, "
+                  f"{TRAIN_B / ms * 1e3:.1f} img/s (CUDA events over 2 calls "
+                  f"of {STEPS_PER_CALL} steps, cold start; {card})")
+    return launches[:2]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is visible")
@@ -483,6 +808,7 @@ def main():
     from spair_pytorch_tpu_torch.models import init_params
     from spair_pytorch_tpu_torch.models.infer import make_detector
     from spair_pytorch_tpu_torch.ops.kernels import composite as K
+    from spair_pytorch_tpu_torch.ops.kernels import composite_v3 as V
     from spair_pytorch_tpu_torch.parallel import make_eval_step
     from spair_pytorch_tpu_torch.serve import DetectorServer
 
@@ -618,19 +944,35 @@ def main():
     launches = main_path_phase(K, card, dev)
 
     # 10. backward times
-    bwd_times = backward_times(K, card, dev)
+    backward_times(K, card, dev)
 
+    # 11. K3 and K4 against their plain versions
+    v3_errs = v3_phase(V, K, dev)
+
+    # 12. K1-K4 on the same inputs
+    same = v3_times(V, K, card, dev)[TRAIN_B]
+
+    # 13. the slice's path: train() through 'pallas_v3'
+    v3_launches = v3_path_phase(V, K, card, dev)
+
+    # the kernels at the main paths' batch, B=128, on the same inputs
     src = "spair_pytorch_tpu_torch/csrc"
-    pallas = "spair_pytorch_tpu/ops/pallas/composite.py"
+    pallas = "spair_pytorch_tpu/ops/pallas"
+    rows = (("composite_fwd", "K1", "composite.py:79", launches[0],
+             max_abs_err),
+            ("composite_bwd", "K2", "composite.py:133", launches[1],
+             bwd_abs_err),
+            ("composite_v3_fwd", "K3", "composite_v3.py:151",
+             v3_launches[0], v3_errs[0]),
+            ("composite_v3_bwd", "K4", "composite_v3.py:203",
+             v3_launches[1], v3_errs[1]))
     print(json.dumps({"kernels": [
-        {"name": "composite_fwd", "route": "cuda",
-         "source": f"{src}/composite_fwd.cu", "replaces": f"{pallas}:79",
-         "launches": launches[0], "max_abs_err": max_abs_err,
-         "ms": times[32][0], "plain_ms": times[32][1]},
-        {"name": "composite_bwd", "route": "cuda",
-         "source": f"{src}/composite_bwd.cu", "replaces": f"{pallas}:133",
-         "launches": launches[1], "max_abs_err": bwd_abs_err,
-         "ms": bwd_times[32][0], "plain_ms": bwd_times[32][1]}]}))
+        {"name": name, "route": "cuda", "source": f"{src}/{name}.cu",
+         "replaces": f"{pallas}/{where}", "launches": n, "max_abs_err": err,
+         "ms": same[k], "plain_ms": same[f"plain {k}"],
+         "bound_ms": same["bound"][k][0], "bound_by": same["bound"][k][1],
+         "library_ms": None}
+        for name, k, where, n, err in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,8 +6,10 @@ NCHW) so the two can be compared on the same inputs. Parameters live in
 ``nn.Module``s named after the reference ``state_dict`` keys; every draw takes
 an explicit ``torch.Generator``; every tensor factory names its device.
 
-Importing the package pulls in only the shared config (no jax); the model,
-serving and kernel modules are imported by name.
+The port imports nothing of the JAX package: ``config.py`` is its own copy
+of the JAX package's config. Importing the package pulls in only that
+module; the model, training, serving and kernel modules are imported by
+name.
 """
 
 from spair_pytorch_tpu_torch import config as config  # noqa: F401

@@ -44,102 +44,13 @@
 // shared memory is ~65 KB. Recasting passes 2-3 as wgmma products, and
 // skipping gated objects before launch, is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "composite_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kEps = 1e-9f;
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float hat(float d) {
-  return fmaxf(0.0f, 1.0f - fabsf(d));
-}
-
-// d hat(d) / d d as the Pallas kernel takes it: -sign(d) where the weight is
-// positive, with sign(0) = 0
-__device__ __forceinline__ float dhat(float d) {
-  if (!(hat(d) > 0.0f)) return 0.0f;
-  return d > 0.0f ? -1.0f : (d < 0.0f ? 1.0f : 0.0f);
-}
-
-// glimpse coordinate sampled by canvas index i (the forward's formula)
-__device__ __forceinline__ float src_coord(int i, int canvas, float t,
-                                           float s, int glimpse) {
-  const float u = 2.0f * (float)i / (float)(canvas - 1) - 1.0f;
-  return ((u - (2.0f * t - 1.0f)) / s + 1.0f) * (float)(glimpse - 1) / 2.0f;
-}
-
-// Canvas indices [lo, hi] whose glimpse coordinate may lie in (src_lo,
-// src_hi): the inverse map, widened by two indices against rounding and
-// clamped to the canvas (lo > hi when empty). Callers test the exact
-// coordinate of each index, so the range only bounds the loops.
-__device__ __forceinline__ void canvas_range(float src_lo, float src_hi,
-                                             int canvas, float t, float s,
-                                             int glimpse, int* lo, int* hi) {
-  const float k = 2.0f / (float)(glimpse - 1);
-  const float half = (float)(canvas - 1) / 2.0f;
-  const float a = ((src_lo * k - 1.0f) * s + 2.0f * t) * half;
-  const float b = ((src_hi * k - 1.0f) * s + 2.0f * t) * half;
-  // fminf/fmaxf drop a NaN operand, so a degenerate box scans the canvas
-  const float l = fminf(fmaxf(floorf(fminf(a, b)) - 2.0f, 0.0f),
-                        (float)canvas);
-  const float h = fmaxf(fminf(ceilf(fmaxf(a, b)) + 2.0f, (float)(canvas - 1)),
-                        -1.0f);
-  *lo = (int)l;
-  *hi = (int)h;
-}
-
-struct Taps {
-  int r0, r1, q0, q1;          // clamped (valid) texel offsets
-  float wy0, wy1, wx0, wx1;    // hat weights, 0 for a tap off the glimpse
-  float ey0, ey1, ex0, ex1;    // their derivatives with respect to sy, sx
-};
-
-__device__ __forceinline__ Taps taps(float sy, float sx, int oh, int ow) {
-  Taps t;
-  const int a0 = (int)floorf(sy), b0 = (int)floorf(sx);
-  const float dy0 = sy - (float)a0, dy1 = sy - (float)(a0 + 1);
-  const float dx0 = sx - (float)b0, dx1 = sx - (float)(b0 + 1);
-  const bool va0 = a0 >= 0, va1 = a0 + 1 <= oh - 1;
-  const bool vb0 = b0 >= 0, vb1 = b0 + 1 <= ow - 1;
-  t.wy0 = va0 ? hat(dy0) : 0.0f;
-  t.wy1 = va1 ? hat(dy1) : 0.0f;
-  t.wx0 = vb0 ? hat(dx0) : 0.0f;
-  t.wx1 = vb1 ? hat(dx1) : 0.0f;
-  t.ey0 = va0 ? dhat(dy0) : 0.0f;
-  t.ey1 = va1 ? dhat(dy1) : 0.0f;
-  t.ex0 = vb0 ? dhat(dx0) : 0.0f;
-  t.ex1 = vb1 ? dhat(dx1) : 0.0f;
-  t.r0 = max(a0, 0) * ow;
-  t.r1 = min(a0 + 1, oh - 1) * ow;
-  t.q0 = max(b0, 0);
-  t.q1 = min(b0 + 1, ow - 1);
-  return t;
-}
-
-// bilinear sample of one glimpse plane and its derivatives in sy and sx
-__device__ __forceinline__ void sample(const float* g, const Taps& t,
-                                       float* v, float* vy, float* vx) {
-  const float g00 = g[t.r0 + t.q0], g01 = g[t.r0 + t.q1];
-  const float g10 = g[t.r1 + t.q0], g11 = g[t.r1 + t.q1];
-  const float top = t.wx0 * g00 + t.wx1 * g01;
-  const float bot = t.wx0 * g10 + t.wx1 * g11;
-  *v = t.wy0 * top + t.wy1 * bot;
-  *vy = t.ey0 * top + t.ey1 * bot;
-  *vx = t.wy0 * (t.ex0 * g00 + t.ex1 * g01) +
-        t.wy1 * (t.ex0 * g10 + t.ex1 * g11);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -278,23 +189,9 @@ composite_bwd_kernel(const T* __restrict__ color, const T* __restrict__ alpha,
 
   for (int i = tid; i < gsize; i += blockDim.x) put(dg_obj + i, sdg[i]);
 
-  float v[4] = {gx, gy, gxs, gys};
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
-  if ((tid & 31) == 0) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sred[(tid >> 5) * 4 + j] = v[j];
-  }
-  __syncthreads();
+  float s[4];
+  block_sum4<kWarps>(gx, gy, gxs, gys, sred, s);
   if (tid == 0) {
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int w = 0; w < kWarps; ++w) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[j] += sred[w * 4 + j];
-    }
     dbox[4 * obj + 0] = s[0] * (-(float)(ow - 1) / xs);
     dbox[4 * obj + 1] = s[1] * (-(float)(oh - 1) / ys);
     dbox[4 * obj + 2] = s[2] * (-1.0f / xs);
@@ -355,10 +252,6 @@ int spair_composite_bwd(const void* color, const void* alpha, const void* imp,
                                  s);
   return launch<float>(color, alpha, imp, boxes, gate, dnum, dden, dg, dbox,
                        b, n, c, oh, ow, ih, iw, tile_rows, s);
-}
-
-const char* spair_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -30,23 +30,13 @@
 // (C + 1) x H x W floats. Tiling glimpses through shared memory with TMA, or
 // recasting the paste as wgmma products, is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "composite_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChannelsPerBlock = 4;
 constexpr float kEps = 1e-9f;
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float hat(float d) {
-  return fmaxf(0.0f, 1.0f - fabsf(d));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -92,30 +82,15 @@ composite_fwd_kernel(const T* __restrict__ color, const T* __restrict__ alpha,
                      (float)(ow - 1) / 2.0f;
     if (!(sx > -1.0f && sx < (float)ow)) continue;
 
-    // the two hat taps per axis; a tap outside the glimpse gets weight 0
-    // and a clamped (valid) address
-    const int a0 = (int)floorf(sy);
-    const int b0 = (int)floorf(sx);
-    const float wy0 = a0 >= 0 ? hat(sy - (float)a0) : 0.0f;
-    const float wy1 = a0 + 1 <= oh - 1 ? hat(sy - (float)(a0 + 1)) : 0.0f;
-    const float wx0 = b0 >= 0 ? hat(sx - (float)b0) : 0.0f;
-    const float wx1 = b0 + 1 <= ow - 1 ? hat(sx - (float)(b0 + 1)) : 0.0f;
-    const int r0 = max(a0, 0) * ow, r1 = min(a0 + 1, oh - 1) * ow;
-    const int q0 = max(b0, 0), q1 = min(b0 + 1, ow - 1);
-
-    auto sample = [&](const T* g) {
-      return wy0 * (wx0 * widen(g[r0 + q0]) + wx1 * widen(g[r0 + q1])) +
-             wy1 * (wx0 * widen(g[r1 + q0]) + wx1 * widen(g[r1 + q1]));
-    };
-
+    const Taps t = taps(sy, sx, oh, ow);
     const size_t obj = (size_t)b * n + o;
-    const float a = sample(alpha + obj * plane);
-    const float im = sample(imp + obj * plane);
+    const float a = bilinear(alpha + obj * plane, t);
+    const float im = bilinear(imp + obj * plane, t);
     const float ime = im + kEps;
 #pragma unroll
     for (int k = 0; k < kChannelsPerBlock; ++k) {
       if (k < nch) {
-        const float col = sample(color + (obj * c + c0 + k) * plane);
+        const float col = bilinear(color + (obj * c + c0 + k) * plane, t);
         acc[k] += a * col * ime;
       }
     }
@@ -163,10 +138,6 @@ int spair_composite_fwd(const void* color, const void* alpha, const void* imp,
         static_cast<float*>(den), n, c, oh, ow, ih, iw, den_floor);
   }
   return (int)cudaGetLastError();
-}
-
-const char* spair_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -1,0 +1,279 @@
+// Band-clipped paste-and-composite, backward (Hopper, sm_90a).
+//
+// Replaces spair_pytorch_tpu/ops/pallas/composite_v3.py::_bwd_kernel (K4),
+// the VJP of composite_v3_fwd.cu. For object o of grid row h, whose planes
+// are pasted onto the canvas rows [starts[h], starts[h] + band) only, the
+// plane cotangents at a canvas pixel of that band are
+//
+//   dP_k   = dnum_k * alpha * (imp + 1e-9)                    k < C
+//   dP_a   = sum_k dnum_k * color_k * (imp + 1e-9)
+//   dP_i   = sum_k dnum_k * alpha * color_k + dden
+//
+// and the kernel returns dG = py^T dP px, with py zero outside the band,
+// and the box gradient from the hat-weight derivatives over the band, with
+// the Pallas formula (dw/dsrc = -sign(src - a) where w > 0, sign(0) = 0;
+// dsrc/dt = -(k - 1)/s, dsrc/ds = -(src - (k - 1)/2)/s). An object whose
+// glimpses are all zero (gated upstream) gets dbox = 0 exactly, since every
+// pasted plane and its derivatives vanish; its importance gradient is
+// py^T dden px, as in the TPU kernel, and the caller's gate mask zeroes it.
+//
+// Layout: one block per (grid row, image). The block stages the row's band
+// of dnum and dden, (C + 1) x band x W floats, in shared memory once (88 KB
+// at paper128, C = 1), and then takes the row's gw objects one after the
+// other, each reading the staged band; composite_bwd.cu, with a block per
+// object, reads each object's support from device memory. Per object the
+// block holds the glimpse (widened to f32) and its dG accumulator in shared
+// memory and walks the support, clipped to the band, in tiles of tile_rows
+// canvas rows, as composite_bwd.cu does:
+//
+//   pass 1  one thread per support pixel: the planes and their derivatives
+//           in sy and sx, dP into a shared tile, the pixel's box terms into
+//           per-thread sums;
+//   pass 2  one thread per (channel, tile row, glimpse column):
+//           dT = sum_x px(x, q) dP(x);
+//   pass 3  one thread per glimpse texel: dG += sum_y py(y, a) dT(y).
+//
+// Every sum has one owner and a fixed order, and the box sums are reduced
+// warp by warp in order, with no global atomics: the result is
+// deterministic. dG is written in the glimpse dtype.
+//
+// What bounds it on the card: per image it reads the glimpses and dnum/dden
+// once each and writes dG and dbox, 2.4 MB at paper128; the per-object
+// passes are bound by shared memory and by the block's 16 warps, since the
+// staged band leaves room for one block per SM.
+
+#include "composite_common.cuh"
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxRows = 64;  // grid rows one launch takes
+constexpr float kEps = 1e-9f;
+
+struct RowStarts {
+  int v[kMaxRows];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+composite_v3_bwd_kernel(const T* __restrict__ color,
+                        const T* __restrict__ alpha,
+                        const T* __restrict__ imp,
+                        const float* __restrict__ boxes,
+                        const float* __restrict__ dnum,
+                        const float* __restrict__ dden, T* __restrict__ dg,
+                        float* __restrict__ dbox, RowStarts starts, int gh,
+                        int gw, int c, int oh, int ow, int ih, int iw,
+                        int band, int tile_rows) {
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int n = gh * gw, nc = c + 2, plane = oh * ow, gsize = nc * plane;
+  const int ylo = starts.v[h], yhi = ylo + band - 1;
+
+  extern __shared__ float smem[];
+  const int bw = band * iw;
+  float* sband = smem;                       // (C + 1, band, W) dnum, dden
+  float* sg = sband + (c + 1) * bw;          // (nc, oh, ow) glimpse
+  float* sdg = sg + gsize;                   // (nc, oh, ow) dG
+  float* ssy = sdg + gsize;                  // (band,) sy per band row
+  float* ssx = ssy + band;                   // (W,) sx per canvas column
+  float* sdp = ssx + iw;                     // (nc, tile_rows, W) dP tile
+  float* sdt = sdp + nc * tile_rows * iw;    // (nc, tile_rows, ow) dT tile
+  int* sxr = (int*)(sdt + nc * tile_rows * ow);  // (ow, 2) column ranges
+  int* syr = sxr + 2 * ow;                   // (oh, 2) row ranges
+  float* sred = (float*)(syr + 2 * oh);      // (kWarps, 4) box sums
+
+  const size_t hw = (size_t)ih * iw;
+  for (int i = tid; i < (c + 1) * bw; i += blockDim.x) {
+    const int k = i / bw, rem = i - k * bw;
+    const size_t p = (size_t)ylo * iw + rem;
+    sband[i] = k < c ? dnum[((size_t)b * c + k) * hw + p]
+                     : dden[(size_t)b * hw + p];
+  }
+  const float* sdden = sband + c * bw;
+  const float cy = (float)(oh - 1) * 0.5f, cx = (float)(ow - 1) * 0.5f;
+  const int kstride = tile_rows * iw;
+
+  for (int j = 0; j < gw; ++j) {
+    const size_t obj = (size_t)b * n + h * gw + j;
+    const float xt = boxes[4 * obj + 0], yt = boxes[4 * obj + 1];
+    const float xs = boxes[4 * obj + 2], ys = boxes[4 * obj + 3];
+    T* dg_obj = dg + obj * gsize;
+
+    for (int i = tid; i < gsize; i += blockDim.x) {
+      const int k = i / plane, rem = i - k * plane;
+      const T* src = k < c ? color + (obj * c + k) * plane
+                           : (k == c ? alpha : imp) + obj * plane;
+      sg[i] = widen(src[rem]);
+      sdg[i] = 0.0f;
+    }
+    for (int r = tid; r < band; r += blockDim.x)
+      ssy[r] = src_coord(ylo + r, ih, yt, ys, oh);
+    for (int x = tid; x < iw; x += blockDim.x)
+      ssx[x] = src_coord(x, iw, xt, xs, ow);
+    for (int q = tid; q < ow; q += blockDim.x)
+      canvas_range((float)q - 1.0f, (float)q + 1.0f, iw, xt, xs, ow,
+                   &sxr[2 * q], &sxr[2 * q + 1]);
+    for (int a = tid; a < oh; a += blockDim.x)
+      canvas_range((float)a - 1.0f, (float)a + 1.0f, ih, yt, ys, oh,
+                   &syr[2 * a], &syr[2 * a + 1]);
+    // the paste support, sy in (-1, oh) and sx in (-1, ow), clipped to the
+    // band
+    int y0, y1, x0, x1;
+    canvas_range(-1.0f, (float)oh, ih, yt, ys, oh, &y0, &y1);
+    canvas_range(-1.0f, (float)ow, iw, xt, xs, ow, &x0, &x1);
+    y0 = max(y0, ylo);
+    y1 = min(y1, yhi);
+    __syncthreads();
+
+    const int wsup = x1 - x0 + 1;
+    float gy = 0.0f, gys = 0.0f, gx = 0.0f, gxs = 0.0f;
+
+    for (int ty = y0; wsup > 0 && ty <= y1; ty += tile_rows) {
+      const int rows = min(tile_rows, y1 - ty + 1);
+
+      // pass 1: plane cotangents of the tile and the box terms
+      for (int i = tid; i < rows * wsup; i += blockDim.x) {
+        const int r = i / wsup, xl = i - r * wsup;
+        const int y = ty + r, x = x0 + xl;
+        const float sy = ssy[y - ylo], sx = ssx[x];
+        float* dp = sdp + r * iw + xl;
+        if (!(sy > -1.0f && sy < (float)oh && sx > -1.0f &&
+              sx < (float)ow)) {
+          for (int k = 0; k < nc; ++k) dp[k * kstride] = 0.0f;
+          continue;
+        }
+        const Taps t = taps(sy, sx, oh, ow);
+        float alp, alp_y, alp_x, im, im_y, im_x;
+        sample(sg + c * plane, t, &alp, &alp_y, &alp_x);
+        sample(sg + (c + 1) * plane, t, &im, &im_y, &im_x);
+        const float ime = im + kEps;
+        const int p = (y - ylo) * iw + x;
+        float dalp = 0.0f, dimp = sdden[p], ty_sum = 0.0f, tx_sum = 0.0f;
+        for (int k = 0; k < c; ++k) {
+          float col, col_y, col_x;
+          sample(sg + k * plane, t, &col, &col_y, &col_x);
+          const float dn = sband[k * bw + p];
+          const float dpk = dn * alp * ime;
+          dp[k * kstride] = dpk;
+          dalp += dn * col * ime;
+          dimp += dn * alp * col;
+          ty_sum += dpk * col_y;
+          tx_sum += dpk * col_x;
+        }
+        dp[c * kstride] = dalp;
+        dp[(c + 1) * kstride] = dimp;
+        ty_sum += dalp * alp_y + dimp * im_y;
+        tx_sum += dalp * alp_x + dimp * im_x;
+        gy += ty_sum;
+        gys += ty_sum * (sy - cy);
+        gx += tx_sum;
+        gxs += tx_sum * (sx - cx);
+      }
+      __syncthreads();
+
+      // pass 2: dT(k, r, q) = sum_x hat(sx - q) dP(k, r, x)
+      for (int i = tid; i < nc * rows * ow; i += blockDim.x) {
+        const int kr = i / ow, q = i - kr * ow;
+        const int k = kr / rows, r = kr - k * rows;
+        const float* dp = sdp + (k * tile_rows + r) * iw;
+        const int lo = max(sxr[2 * q], x0), hi = min(sxr[2 * q + 1], x1);
+        float acc = 0.0f;
+        for (int x = lo; x <= hi; ++x)
+          acc += hat(ssx[x] - (float)q) * dp[x - x0];
+        sdt[(k * tile_rows + r) * ow + q] = acc;
+      }
+      __syncthreads();
+
+      // pass 3: dG(k, a, q) += sum_y hat(sy - a) dT(k, y, q)
+      for (int i = tid; i < gsize; i += blockDim.x) {
+        const int k = i / plane, rem = i - k * plane;
+        const int a = rem / ow, q = rem - a * ow;
+        const int lo = max(syr[2 * a], ty);
+        const int hi = min(syr[2 * a + 1], ty + rows - 1);
+        const float* dt = sdt + k * tile_rows * ow + q;
+        float acc = 0.0f;
+        for (int y = lo; y <= hi; ++y)
+          acc += hat(ssy[y - ylo] - (float)a) * dt[(y - ty) * ow];
+        sdg[i] += acc;
+      }
+      __syncthreads();
+    }
+
+    for (int i = tid; i < gsize; i += blockDim.x) put(dg_obj + i, sdg[i]);
+    float s[4];
+    block_sum4<kWarps>(gx, gy, gxs, gys, sred, s);
+    if (tid == 0) {
+      dbox[4 * obj + 0] = s[0] * (-(float)(ow - 1) / xs);
+      dbox[4 * obj + 1] = s[1] * (-(float)(oh - 1) / ys);
+      dbox[4 * obj + 2] = s[2] * (-1.0f / xs);
+      dbox[4 * obj + 3] = s[3] * (-1.0f / ys);
+    }
+    // the next object overwrites the glimpse, dG, coordinates and sred
+    __syncthreads();
+  }
+}
+
+size_t smem_bytes(int c, int oh, int ow, int iw, int band, int tile_rows) {
+  const size_t nc = (size_t)c + 2;
+  return sizeof(float) * ((size_t)(c + 1) * band * iw + 2 * nc * oh * ow +
+                          band + iw + nc * tile_rows * ((size_t)iw + ow) +
+                          2 * ((size_t)oh + ow) + 4 * kWarps);
+}
+
+template <typename T>
+int launch(const void* color, const void* alpha, const void* imp,
+           const void* boxes, const void* dnum, const void* dden, void* dg,
+           void* dbox, const RowStarts& rs, int b, int gh, int gw, int c,
+           int oh, int ow, int ih, int iw, int band, int tile_rows,
+           cudaStream_t s) {
+  const size_t smem = smem_bytes(c, oh, ow, iw, band, tile_rows);
+  cudaError_t err = cudaFuncSetAttribute(
+      composite_v3_bwd_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  composite_v3_bwd_kernel<T><<<dim3(gh, b), dim3(kThreads), smem, s>>>(
+      static_cast<const T*>(color), static_cast<const T*>(alpha),
+      static_cast<const T*>(imp), static_cast<const float*>(boxes),
+      static_cast<const float*>(dnum), static_cast<const float*>(dden),
+      static_cast<T*>(dg), static_cast<float*>(dbox), rs, gh, gw, c, oh, ow,
+      ih, iw, band, tile_rows);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory one block takes for these sizes, in bytes.
+size_t spair_composite_v3_bwd_smem(int c, int oh, int ow, int iw, int band,
+                                   int tile_rows) {
+  return smem_bytes(c, oh, ow, iw, band, tile_rows);
+}
+
+// Launches on `stream`; returns a CUDA error code (0 on success). Pointers
+// are device pointers to contiguous tensors: color (B, N, C, oh, ow), alpha
+// and imp (B, N, 1, oh, ow) and dg (B, N, C + 2, oh, ow) in f32 (is_bf16 =
+// 0) or bf16 (is_bf16 = 1), N = gh * gw in raster order; boxes (B, N, 4)
+// f32; dnum (B, C, H, W) and dden (B, 1, H, W) f32; dbox (B, N, 4) f32.
+// `starts` is a HOST array of gh band starts, each in [0, H - band].
+int spair_composite_v3_bwd(const void* color, const void* alpha,
+                           const void* imp, const void* boxes,
+                           const void* dnum, const void* dden, void* dg,
+                           void* dbox, const int* starts, int b, int gh,
+                           int gw, int c, int oh, int ow, int ih, int iw,
+                           int band, int tile_rows, int is_bf16,
+                           void* stream) {
+  if (gh < 1 || gh > kMaxRows) return (int)cudaErrorInvalidValue;
+  RowStarts rs = {};
+  for (int h = 0; h < gh; ++h) rs.v[h] = starts[h];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16>(color, alpha, imp, boxes, dnum, dden, dg,
+                                 dbox, rs, b, gh, gw, c, oh, ow, ih, iw, band,
+                                 tile_rows, s);
+  return launch<float>(color, alpha, imp, boxes, dnum, dden, dg, dbox, rs, b,
+                       gh, gw, c, oh, ow, ih, iw, band, tile_rows, s);
+}
+
+}  // extern "C"

@@ -6,6 +6,8 @@ Items follow the JAX package's schema: image (C, H, W) in [0, 1], bbox
 slots all zero), count (1,). The random draws (``draw_scenes``) are kept
 apart from the deterministic placement (``place_patches``), so the
 placement can be held against the JAX generator on the same draws.
+``OnDeviceScatteredDigits`` is the infinite iterator the training and
+evaluation loops draw from.
 """
 
 from __future__ import annotations
@@ -112,3 +114,25 @@ def generate_batch(generator: torch.Generator, bank, batch: int,
     picks, oys, oxs, count = draw_scenes(generator, bank.shape[0], batch,
                                          dcfg)
     return place_patches(bank, picks, oys, oxs, count, dcfg)
+
+
+class OnDeviceScatteredDigits:
+    """Infinite iterator of scene batches (image, bbox, count) generated on
+    ``device`` from a ``torch.Generator`` that lives there, seeded with
+    ``seed``; ``bank`` (n, ph, pw) defaults to the glyph bank."""
+
+    def __init__(self, dcfg: DataConfig, batch: int, bank=None, seed: int = 0,
+                 device="cuda"):
+        self.dcfg = dcfg
+        self.batch = batch
+        self.bank = torch.as_tensor(
+            bank if bank is not None else glyph_bank(dcfg.patch_hw),
+            dtype=torch.float32, device=device)
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return generate_batch(self.generator, self.bank, self.batch,
+                              self.dcfg)

@@ -57,7 +57,7 @@ class SpairModel(nn.Module):
 
 
 def init_params(cfg: SpairConfig, generator: torch.Generator = None,
-                device="cpu") -> SpairModel:
+                device="cuda") -> SpairModel:
     """A freshly initialized model on ``device``.
 
     Weights are drawn on the CPU from ``generator`` (a CPU generator seeded

@@ -4,9 +4,11 @@
 The composite is the reference's importance-normalized blend, out =
 num / den clipped to [0, 1], with num and den from
 ``ops/kernels/composite.py``: ``composite``, the autograd Function over the
-CUDA forward and backward kernels (``render_backend`` 'pallas' or 'auto';
-on CPU tensors their plain versions), or the plain chunked compositor under
-autograd ('xla').
+CUDA forward and backward kernels K1 and K2 (``render_backend`` 'pallas' or
+'auto'; on CPU tensors their plain versions), or the plain chunked
+compositor under autograd ('xla'); or, for 'pallas_v3', from
+``ops/kernels/composite_v3.py::composite_v3``, the band-clipped kernels K3
+and K4, which compute the same function for the model's boxes.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ import numpy as np
 import torch
 
 from spair_pytorch_tpu_torch.config import SpairConfig
+from spair_pytorch_tpu_torch.ops.backbone import grid_geometry
 from spair_pytorch_tpu_torch.ops.kernels.composite import (composite,
                                                            composite_plain)
+from spair_pytorch_tpu_torch.ops.kernels.composite_v3 import composite_v3
 from spair_pytorch_tpu_torch.ops.math import clamped_sigmoid
 
 
@@ -66,8 +70,8 @@ def render(params, cfg: SpairConfig, z_attr, z_where, z_depth, z_pres,
     glimpses the compositor sees, are float32 either way. With
     ``pres_gate_threshold`` > 0, objects whose z_pres is not above it are
     left out of the composite (den keeps their 1e-9 floor) and get no
-    reconstruction gradient: the kernels skip them, the plain compositor
-    masks their glimpses."""
+    reconstruction gradient: K1 and K2 skip them; the plain compositor and
+    'pallas_v3' mask their glimpses, as the JAX package does."""
     if cfg.render_mode != "reference":
         raise NotImplementedError(
             f"render_mode {cfg.render_mode!r} is not ported yet")
@@ -94,6 +98,16 @@ def render(params, cfg: SpairConfig, z_attr, z_where, z_depth, z_pres,
     elif backend == "xla":
         num, den = composite_plain(color, alpha, importance, boxes, image_hw,
                                    cfg.render_chunk, pres_gate=gate)
+    elif backend == "pallas_v3":
+        if gate is not None:
+            g = gate[:, :, None, None, None]
+            color, alpha, importance = color * g, alpha * g, importance * g
+        _, _, (cell_h, _) = grid_geometry(image_hw, cfg.backbone_topology)
+        max_ys = cfg.max_hw * cfg.anchor_shape[0] / cfg.image_shape[1]
+        num, den = composite_v3(color, alpha, importance, boxes, image_hw,
+                                cell_h, (gh, gw),
+                                (cfg.min_yx, cfg.max_yx, max_ys),
+                                cfg.render_chunk_k)
     else:
         raise NotImplementedError(
             f"render_backend {backend!r} is not ported yet")

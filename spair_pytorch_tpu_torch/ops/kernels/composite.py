@@ -10,8 +10,9 @@ and ``csrc/composite_bwd.cu`` or raise; for CPU tensors they run
 Pallas backward's formulas as tensor code), which are also the kernels'
 oracles.
 
-The kernels are compiled with ``nvcc`` at first use into ``_build/``, one
-library per source, named by the source's hash (so an edited source
+The kernels (these two and ``ops/kernels/composite_v3.py``'s) are compiled
+with ``nvcc`` at first use into ``_build/``, one library per source, named
+by the hash of the source and the shared header (so an edited source
 rebuilds), and bound with ``ctypes``. Nothing is built or loaded at import
 time.
 """
@@ -34,7 +35,9 @@ from spair_pytorch_tpu_torch.ops.stn import _source_coords_paste, paste_weights
 _EPS = 1e-9
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("composite_fwd", "composite_bwd")}
+           for name in ("composite_fwd", "composite_bwd", "composite_v3_fwd",
+                        "composite_v3_bwd")}
+HEADERS = (_PKG / "csrc" / "composite_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -43,7 +46,8 @@ _BWD_SMEM_BUDGETS = (64 * 1024, 227 * 1024)
 
 
 def composite_plain(color, alpha, importance, boxes, image_hw,
-                    chunk: int = 16, pres_gate=None, den_floor_n=None):
+                    chunk: int = 16, pres_gate=None, den_floor_n=None,
+                    row_keep=None):
     """Chunked paste-and-composite in plain PyTorch.
 
     color (B, N, C, oh, ow), alpha and importance (B, N, 1, oh, ow), boxes
@@ -52,7 +56,9 @@ def composite_plain(color, alpha, importance, boxes, image_hw,
     den = sum_o (paste(imp) + 1e-9). Glimpses are widened to float32, as the
     kernel does. ``pres_gate`` (B, N) masks the glimpses of gated-out
     objects (they keep their 1e-9 den floor); ``den_floor_n`` sets the
-    number of objects counted in that floor. Objects are padded to a
+    number of objects counted in that floor. ``row_keep`` (1 or B, N, H),
+    1 or 0, zeroes each object's row hat weights on the canvas rows it may
+    not paste onto (the banded compositor's clip). Objects are padded to a
     multiple of ``chunk`` with zero glimpses on the safe box [0.5, 0.5, 1, 1]
     (a zero scale would divide 0 by 0), and the padding's floor is taken
     back out of den."""
@@ -74,11 +80,16 @@ def composite_plain(color, alpha, importance, boxes, image_hw,
         safe = torch.tensor([0.5, 0.5, 1.0, 1.0], dtype=f32,
                             device=boxes.device).expand(b, pad, 4)
         boxes = torch.cat([boxes, safe], dim=1)
+        if row_keep is not None:
+            row_keep = torch.cat([row_keep, row_keep.new_zeros(
+                row_keep.shape[:1] + (pad, h))], dim=1)
     num = torch.zeros((b, c, h, w), dtype=f32, device=color.device)
     den = torch.zeros((b, 1, h, w), dtype=f32, device=color.device)
     for start in range(0, n + pad, chunk):
         sl = slice(start, start + chunk)
         py, px = paste_weights(boxes[:, sl], (oh, ow), (h, w))
+        if row_keep is not None:
+            py = py * row_keep[:, sl, :, None]
         glimpse = torch.cat([color[:, sl], alpha[:, sl], importance[:, sl]],
                             dim=2)
         tmp = torch.einsum("bnhy,bncyx->bnchx", py, glimpse)
@@ -96,7 +107,8 @@ def composite_plain(color, alpha, importance, boxes, image_hw,
 
 
 def composite_backward_plain(color, alpha, importance, boxes, image_hw,
-                             dnum, dden, pres_gate=None, chunk: int = 16):
+                             dnum, dden, pres_gate=None, chunk: int = 16,
+                             row_keep=None):
     """The compositor's VJP in plain PyTorch: the formulas of the Pallas
     backward (``_bwd_object``) as tensor code over the full canvas, where
     the hat weights vanish outside each object's support, so no window is
@@ -106,13 +118,16 @@ def composite_backward_plain(color, alpha, importance, boxes, image_hw,
     Inputs as ``composite_plain`` takes them, plus the cotangents dnum
     (B, C, H, W) and dden (B, 1, H, W). Returns (dcolor, dalpha, dimp) in
     the glimpse dtype and dbox (B, N, 4) float32; objects whose gate is 0
-    get exact zeros. Objects are taken ``chunk`` at a time."""
+    get exact zeros. ``row_keep`` clips each object's rows as
+    ``composite_plain`` takes it. Objects are taken ``chunk`` at a time."""
     f32 = torch.float32
     c = color.shape[2]
     g = torch.cat([color, alpha, importance], dim=2).to(f32)
     boxes, dnum, dden = boxes.to(f32), dnum.to(f32), dden.to(f32)
     parts = [_backward_objects(g[:, i:i + chunk], boxes[:, i:i + chunk],
-                               dnum, dden, c, image_hw)
+                               dnum, dden, c, image_hw,
+                               None if row_keep is None
+                               else row_keep[:, i:i + chunk])
              for i in range(0, g.shape[1], chunk)]
     dg = torch.cat([p[0] for p in parts], dim=1)
     dbox = torch.cat([p[1] for p in parts], dim=1)
@@ -124,8 +139,9 @@ def composite_backward_plain(color, alpha, importance, boxes, image_hw,
     return dg[:, :, :c], dg[:, :, c:c + 1], dg[:, :, c + 1:], dbox
 
 
-def _backward_objects(g, boxes, dnum, dden, c: int, image_hw):
-    """dG (B, k, C+2, oh, ow) and dbox (B, k, 4) of k objects' glimpses g."""
+def _backward_objects(g, boxes, dnum, dden, c: int, image_hw, row_keep=None):
+    """dG (B, k, C+2, oh, ow) and dbox (B, k, 4) of k objects' glimpses g;
+    ``row_keep`` (1 or B, k, H) clips their canvas rows."""
     oh, ow = g.shape[-2:]
     ih, iw = image_hw
     xt, yt, xs, ys = boxes.unbind(-1)
@@ -135,6 +151,8 @@ def _backward_objects(g, boxes, dnum, dden, c: int, image_hw):
     dx = src_x[..., None] - torch.arange(ow, dtype=g.dtype, device=g.device)
     py = torch.clamp(1.0 - dy.abs(), min=0.0)                  # (B, k, H, oh)
     px = torch.clamp(1.0 - dx.abs(), min=0.0)                  # (B, k, W, ow)
+    if row_keep is not None:
+        py = py * row_keep[..., None]
 
     t = torch.einsum("bnha,bnkaq->bnkhq", py, g)
     planes = torch.einsum("bnkhq,bnwq->bnkhw", t, px)          # (B,k,C+2,H,W)
@@ -180,9 +198,11 @@ def _find_nvcc() -> str:
 
 def library_path(name: str, build_dir: Path = BUILD_DIR) -> Path:
     """Where the build of ``SOURCES[name]`` lives: named by the hash of
-    the source and the nvcc flags."""
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    the source, the shared header and the nvcc flags."""
+    digest = hashlib.sha256(
+        SOURCES[name].read_bytes()
+        + b"".join(h.read_bytes() for h in HEADERS)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return Path(build_dir) / f"{name}_{digest[:16]}.so"
 
 
@@ -220,16 +240,24 @@ def build_library(build_dir: Path = BUILD_DIR) -> Dict[str, Path]:
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load one kernel library, once per process."""
     lib = ctypes.CDLL(str(build_library()[name]))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if name == "composite_fwd":
-        lib.spair_composite_fwd.argtypes = (
-            [ptr] * 7 + [i32] * 7 + [ctypes.c_float, i32, ptr])
-        lib.spair_composite_fwd.restype = i32
-    else:
-        lib.spair_composite_bwd.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]
-        lib.spair_composite_bwd.restype = i32
-        lib.spair_composite_bwd_smem.argtypes = [i32] * 6
-        lib.spair_composite_bwd_smem.restype = ctypes.c_size_t
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    signatures = {  # function: (argtypes, restype)
+        "composite_fwd": {
+            "spair_composite_fwd": ([ptr] * 7 + [i32] * 7 + [f32, i32, ptr],
+                                    i32)},
+        "composite_bwd": {
+            "spair_composite_bwd": ([ptr] * 9 + [i32] * 9 + [ptr], i32),
+            "spair_composite_bwd_smem": ([i32] * 6, ctypes.c_size_t)},
+        "composite_v3_fwd": {
+            "spair_composite_v3_fwd": ([ptr] * 7 + [i32] * 9 + [f32, i32, ptr],
+                                       i32)},
+        "composite_v3_bwd": {
+            "spair_composite_v3_bwd": ([ptr] * 9 + [i32] * 11 + [ptr], i32),
+            "spair_composite_v3_bwd_smem": ([i32] * 6, ctypes.c_size_t)},
+    }
+    for fn, (argtypes, restype) in signatures[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     lib.spair_cuda_error_string.argtypes = [i32]
     lib.spair_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -269,6 +297,16 @@ def _check_cuda_inputs(color, alpha, importance, boxes, pres_gate, image_hw):
         raise ValueError(f"shape out of the kernel's range: B={b}, N={n}, "
                          f"H*W={ih * iw}")
     return b, n, c, oh, ow
+
+
+def _check_cotangents(dnum, dden, b: int, c: int, image_hw):
+    ih, iw = image_hw
+    for name, t, ch in (("dnum", dnum, c), ("dden", dden, 1)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, ch, ih, iw) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"{(b, ch, ih, iw)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
 
 
 def _device_of(tensors, fn: str):
@@ -356,12 +394,7 @@ def composite_backward(color, alpha, importance, boxes, image_hw, dnum, dden,
     b, n, c, oh, ow = _check_cuda_inputs(color, alpha, importance, boxes,
                                          pres_gate, image_hw)
     ih, iw = image_hw
-    for name, t, ch in (("dnum", dnum, c), ("dden", dden, 1)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (b, ch, ih, iw) \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32 "
-                             f"{(b, ch, ih, iw)}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
+    _check_cotangents(dnum, dden, b, c, image_hw)
     lib = load_library("composite_bwd")
     tile_rows = _bwd_tile_rows(c, oh, ow, ih, iw)
     dg = torch.empty((b, n, c + 2, oh, ow), dtype=color.dtype, device=device)

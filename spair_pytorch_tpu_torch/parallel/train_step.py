@@ -43,7 +43,7 @@ def optimizer(cfg: SpairConfig, model: torch.nn.Module):
 
 
 def create_train_state(cfg: SpairConfig, seed: Optional[int] = None,
-                       device="cpu") -> TrainState:
+                       device="cuda") -> TrainState:
     """Fresh parameters from ``cfg.seed`` (see ``init_params``), a fresh
     Adam, step 0 and a generator on ``device`` seeded with ``seed``
     (``cfg.seed`` when omitted)."""

@@ -10,8 +10,10 @@ through ``models.infer.detect``, thresholded and unpadded per request:
     dets[i]["scores"]  # (k_i,)
     dets[i]["count"]   # int
 
-CLI (fresh seeded params on the font glyph bank):
+CLI (the checkpoint under --logdir, else fresh seeded params; requests
+from the font glyph bank):
     python -m spair_pytorch_tpu_torch.serve --requests 64 --batch 32
+    python -m spair_pytorch_tpu_torch.serve --logdir runs/paper128
 """
 
 from __future__ import annotations
@@ -131,18 +133,26 @@ def main(argv=None):
                    help="greedy NMS IoU threshold (0 forces off; default: "
                         "the calibration in --logdir if any, else off)")
     p.add_argument("--logdir", default=None,
-                   help="run directory whose calibration.json sets the "
-                        "operating point")
+                   help="run directory to serve: its latest checkpoint "
+                        "(default: fresh params) and the operating point "
+                        "in its calibration.json")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
     from spair_pytorch_tpu_torch.data import (DataConfig, generate_batch,
                                               glyph_bank)
-    from spair_pytorch_tpu_torch.models import init_params
+    from spair_pytorch_tpu_torch.parallel import create_train_state
 
     device = torch.device(args.device)
     cfg = PRESETS[args.preset]()
-    params = init_params(cfg, device=device)
+    state = create_train_state(cfg, device=device)
+    if args.logdir:
+        from spair_pytorch_tpu_torch.utils.checkpoint import CheckpointManager
+        state = CheckpointManager(os.path.join(args.logdir, "checkpoints")
+                                  ).restore(state)
+        if state is None:
+            raise SystemExit(f"no checkpoint under {args.logdir}")
+    params = state.model
     threshold = resolve_threshold(args.threshold, args.logdir)
     nms_iou = resolve_nms(args.nms, args.logdir)
     print(f"presence threshold {threshold}, nms {nms_iou}")

@@ -18,7 +18,7 @@ from spair_pytorch_tpu.ops.pallas.composite import composite_pallas
 from spair_pytorch_tpu_torch.ops.kernels import composite as K
 from tests.test_model import tiny_config
 from tests.test_torch_ops import (assert_close, jax_params_np, ported_params,
-                                  rel_err, t)
+                                  rel_err, t, tcfg)
 
 BF16_REL = 3e-2
 # the JAX models package exports a function named render: go by module path
@@ -144,7 +144,7 @@ def test_paste_window_rows_matches_jax():
                                            object_shape=(28, 28),
                                            anchor_shape=(48, 48))):
         hw = cfg.image_shape[1:]
-        assert trender.paste_window_rows(cfg, hw) == \
+        assert trender.paste_window_rows(tcfg(cfg), hw) == \
             jrender.paste_window_rows(cfg, hw)
 
 
@@ -159,7 +159,7 @@ def test_decode_objects_matches_jax():
     want = jrender.decode_objects(pnp, cfg, *map(jnp.asarray,
                                                  (z_attr, z_pres, z_depth)))
     with torch.no_grad():
-        got = trender.decode_objects(model, cfg, t(z_attr), t(z_pres),
+        got = trender.decode_objects(model, tcfg(cfg), t(z_attr), t(z_pres),
                                      t(z_depth))
     for g, w in zip(got, want):
         assert g.is_contiguous()

@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from spair_pytorch_tpu.config import paper_config
 from spair_pytorch_tpu.ops.pallas.composite import composite_pallas
+from spair_pytorch_tpu_torch.config import paper_config
 from spair_pytorch_tpu_torch.ops.kernels import composite as K
 from tests.test_torch_ops import rel_err, t
 

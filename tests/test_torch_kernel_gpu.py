@@ -1,5 +1,5 @@
-"""The CUDA compositor kernels against their plain PyTorch versions, on a
-card.
+"""The CUDA compositor kernels (K1/K2, and K3/K4 for 'pallas_v3') against
+their plain PyTorch versions, on a card.
 
 Marked ``gpu``: each test skips when no CUDA card is visible. The file
 imports nothing from the other test modules, so it runs on a machine with
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from spair_pytorch_tpu_torch.ops.kernels import composite as K
+from spair_pytorch_tpu_torch.ops.kernels import composite_v3 as V
 
 BARS = {"float32": 1e-4, "bfloat16": 3e-2}
 GRAD_BARS = {"float32": 1e-3, "bfloat16": 6e-2}
@@ -166,3 +167,88 @@ def test_autograd_function_matches_autograd_through_plain(cuda):
         == (f0 + 1, b0 + 1)
     want = grads(K.composite_plain)
     assert rel(got, want) < GRAD_BARS["float32"]
+
+
+# --------------------------------------------------- K3 / K4 (composite_v3)
+
+HW3, CELL3, GRID3 = (48, 48), 12, (4, 4)
+BOUNDS3 = (0.0, 1.0, 0.25)  # bands of 40 of the 48 canvas rows
+
+
+def banded(seed, c, dev, out_of_band=True):
+    """Glimpses (B=3, 16 objects of a 4x4 grid) and boxes inside their
+    cells' bounds; object 0 sits past its row's band."""
+    rng = np.random.RandomState(seed)
+    b, n = 3, 16
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype("f")
+    glimpses = [torch.as_tensor(a, device=dev) for a in (
+        u(b, n, c, 14, 14), u(b, n, 1, 14, 14), u(b, n, 1, 14, 14, lo=0.01))]
+    hh, ww = np.meshgrid(np.arange(4), np.arange(4), indexing="ij")
+    yt = (hh.ravel()[None] + u(b, n)) * CELL3 / 48
+    xt = (ww.ravel()[None] + u(b, n)) * CELL3 / 48
+    boxes = np.stack([xt, yt, u(b, n, lo=0.05, hi=0.25),
+                      u(b, n, lo=0.05, hi=0.25)], -1).astype("f")
+    if out_of_band:
+        boxes[:, 0] = (0.3, 0.88, 0.2, 0.2)
+    return glimpses, torch.as_tensor(boxes, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(BARS))
+@pytest.mark.parametrize("c", [1, 3])
+def test_v3_kernels_match_plain(cuda, dtype, c):
+    glimpses, boxes = banded(20 + c, c, cuda)
+    geom = (HW3, CELL3, GRID3, BOUNDS3)
+    dnum, dden = cotangents(c, 3, c, HW3, cuda)
+    low = [g.to(getattr(torch, dtype)) for g in glimpses]
+    f0, b0 = V.composite_v3_forward.launches, V.composite_v3_backward.launches
+    with torch.no_grad():
+        got = V.composite_v3_forward(*low, boxes, *geom)
+        grads = V.composite_v3_backward(*low, boxes, *geom, dnum, dden)
+        torch.cuda.synchronize()
+    assert (V.composite_v3_forward.launches,
+            V.composite_v3_backward.launches) == (f0 + 1, b0 + 1)
+    want = V.composite_v3_plain(*glimpses, boxes, *geom)
+    assert rel(got, want) < BARS[dtype]
+    want = V.composite_v3_backward_plain(*glimpses, boxes, *geom, dnum, dden)
+    for g, w in zip(grads, want):
+        assert g.shape == w.shape
+        assert rel((g.float(),), (w,)) < GRAD_BARS[dtype]
+
+
+@pytest.mark.gpu
+def test_v3_kernels_all_gated(cuda):
+    glimpses, boxes = banded(3, 1, cuda)
+    zeros = [torch.zeros_like(g) for g in glimpses]
+    geom = (HW3, CELL3, GRID3, BOUNDS3)
+    num, den = V.composite_v3_forward(*zeros, boxes, *geom)
+    assert bool((num == 0).all())
+    np.testing.assert_allclose(den.cpu().numpy(), 16e-9, rtol=1e-6)
+    dnum, dden = cotangents(5, 3, 1, HW3, cuda)
+    got = V.composite_v3_backward(*zeros, boxes, *geom, dnum, dden)
+    want = V.composite_v3_backward_plain(*zeros, boxes, *geom, dnum, dden)
+    for i in (0, 1, 3):
+        assert bool((got[i] == 0).all())
+    assert rel((got[2],), (want[2],)) < GRAD_BARS["float32"]
+
+
+@pytest.mark.gpu
+def test_v3_function_matches_k1_path_and_autograd(cuda):
+    """For band-respecting boxes K3 computes K1's function; the autograd
+    Function's gradients equal autograd's through the plain version."""
+    glimpses, boxes = banded(6, 1, cuda, out_of_band=False)
+    geom = (HW3, CELL3, GRID3, BOUNDS3)
+    with torch.no_grad():
+        assert rel(V.composite_v3_forward(*glimpses, boxes, *geom),
+                   K.composite_forward(*glimpses, boxes, HW3)) < 1e-4
+    dnum, dden = cotangents(7, 3, 1, HW3, cuda)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (*glimpses, boxes)]
+        torch.autograd.backward(fn(*leaves, *geom), (dnum, dden))
+        return [t.grad for t in leaves]
+
+    assert rel(grads(V.composite_v3), grads(V.composite_v3_plain)) \
+        < GRAD_BARS["float32"]

@@ -28,7 +28,7 @@ from spair_pytorch_tpu_torch.models.kl import count_prior_kl, independent_kl
 from spair_pytorch_tpu_torch.parallel import make_eval_step
 from tests.test_model import tiny_config
 from tests.test_torch_ops import (F32_REL, assert_close, jax_params_np,
-                                  ported_params, t)
+                                  ported_params, t, tcfg)
 
 B = 2
 
@@ -74,7 +74,8 @@ def test_infer_latents_matches_jax(mode):
     pnp, model, x, noise = setup(cfg)
     want = jax_infer(pnp, cfg, jnp.asarray(x), 1500, None, noise)
     with torch.no_grad():
-        got = infer_latents(model, cfg, t(x), 1500, noise=tnoise(noise))
+        got = infer_latents(model, tcfg(cfg), t(x), 1500,
+                            noise=tnoise(noise))
     keys = ("z_where", "z_attr", "z_depth", "z_pres", "z_pres_prob",
             "posterior", "context_vec", "feat_flat", "training_wheel")
     for key in keys:
@@ -88,9 +89,9 @@ def test_raster_equals_wavefront_in_the_port():
     cfg = tiny_config(inference_mode="raster")
     _, model, x, noise = setup(cfg, seed=3)
     with torch.no_grad():
-        r = infer_latents(model, cfg, t(x), 0, noise=tnoise(noise))
-        w = infer_latents(model, dataclasses.replace(
-            cfg, inference_mode="wavefront"), t(x), 0, noise=tnoise(noise))
+        r = infer_latents(model, tcfg(cfg), t(x), 0, noise=tnoise(noise))
+        w = infer_latents(model, tcfg(dataclasses.replace(
+            cfg, inference_mode="wavefront")), t(x), 0, noise=tnoise(noise))
     for a, b in zip(flat_leaves(r), flat_leaves(w)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
@@ -106,13 +107,13 @@ def test_kls_match_jax():
     want = jax_indep_kl(jax.tree_util.tree_map(jnp.asarray, post),
                         jnp.asarray(z_pres), cfg)
     got = independent_kl({k: (t(m), t(s)) for k, (m, s) in post.items()},
-                         t(z_pres), cfg)
+                         t(z_pres), tcfg(cfg))
     for k in want:
         assert_close(got[k], np.asarray(want[k]))
     for step in (0, 1500, 30000):
         want = jax_count_kl(jnp.asarray(z_pres), jnp.asarray(z_pres), step,
                             cfg)
-        got = count_prior_kl(t(z_pres), t(z_pres), step, cfg)
+        got = count_prior_kl(t(z_pres), t(z_pres), step, tcfg(cfg))
         assert_close(got, np.asarray(want))
 
 
@@ -126,7 +127,7 @@ def test_forward_matches_jax_pallas(mode, gate):
     pnp, model, x, noise = setup(cfg, seed=7)
     loss_j, aux_j = jax_forward(pnp, cfg, jnp.asarray(x), 1500, None, noise)
     with torch.no_grad():
-        loss, aux = forward(model, cfg, t(x), 1500, noise=tnoise(noise))
+        loss, aux = forward(model, tcfg(cfg), t(x), 1500, noise=tnoise(noise))
     assert abs(float(loss) - float(loss_j)) < F32_REL * abs(float(loss_j))
     assert_close(aux["recon"], np.asarray(aux_j["recon"]))
     assert sorted(aux["losses"]) == sorted(aux_j["losses"])
@@ -145,7 +146,7 @@ def test_forward_options_match_jax():
     pnp, model, x, noise = setup(cfg, seed=11, step=2500)
     loss_j, aux_j = jax_forward(pnp, cfg, jnp.asarray(x), 2500, None, noise)
     with torch.no_grad():
-        loss, aux = forward(model, cfg, t(x), 2500, noise=tnoise(noise))
+        loss, aux = forward(model, tcfg(cfg), t(x), 2500, noise=tnoise(noise))
     assert abs(float(loss) - float(loss_j)) < F32_REL * abs(float(loss_j))
     assert_close(aux["recon"], np.asarray(aux_j["recon"]))
     assert abs(float(aux["losses"]["losses/pres_entropy"])
@@ -159,7 +160,7 @@ def test_forward_paper128_width_matches_jax():
     pnp, model, x, noise = setup(cfg, seed=13, step=0)
     loss_j, aux_j = jax_forward(pnp, cfg, jnp.asarray(x), 0, None, noise)
     with torch.no_grad():
-        loss, aux = forward(model, cfg, t(x), 0, noise=tnoise(noise))
+        loss, aux = forward(model, tcfg(cfg), t(x), 0, noise=tnoise(noise))
     assert tuple(aux["recon"].shape) == (B, 1, 128, 128)
     assert abs(float(loss) - float(loss_j)) < F32_REL * abs(float(loss_j))
     assert_close(aux["recon"], np.asarray(aux_j["recon"]))
@@ -168,6 +169,7 @@ def test_forward_paper128_width_matches_jax():
 def test_eval_step_is_forward_without_grad():
     cfg = tiny_config(inference_mode="wavefront")
     _, model, x, _ = setup(cfg, seed=17)
+    cfg = tcfg(cfg)
     loss, aux = make_eval_step(cfg)(model, t(x), 1500,
                                     torch.Generator().manual_seed(0))
     assert not loss.requires_grad and bool(torch.isfinite(loss))
@@ -179,13 +181,14 @@ def test_eval_step_is_forward_without_grad():
 
 
 def test_forward_with_grad_refuses_the_kernel_path():
-    """Backend 'auto' now trains: its gradients (the kernels' autograd
-    Function, here their plain versions) equal autograd's through the
-    'xla' compositor. The backend that has no port, 'pallas_v3', is
-    refused."""
-    cfg = tiny_config(inference_mode="independent", render_backend="auto",
-                      pres_gate_threshold=0.3)
-    _, model, x, noise = setup(cfg, seed=19)
+    """Both kernel backends train: the gradients of 'auto' (K1/K2's
+    autograd Function) and of 'pallas_v3' (K3/K4's), here through their
+    plain versions, equal autograd's through the 'xla' compositor, gated,
+    for the model's own boxes."""
+    jcfg = tiny_config(inference_mode="independent", render_backend="auto",
+                       pres_gate_threshold=0.3)
+    _, model, x, noise = setup(jcfg, seed=19)
+    cfg = tcfg(jcfg)
 
     def grads(c):
         model.zero_grad(set_to_none=True)
@@ -193,21 +196,20 @@ def test_forward_with_grad_refuses_the_kernel_path():
         loss.backward()
         return {k: p.grad.clone() for k, p in model.named_parameters()}
 
-    got = grads(cfg)
     want = grads(dataclasses.replace(cfg, render_backend="xla"))
-    assert model.object_decoder.out.weight.grad is not None
-    for k, w in want.items():
-        assert_close(got[k], w.numpy(), rel=1e-3)
-    with pytest.raises(NotImplementedError, match="pallas_v3"):
-        forward(model, dataclasses.replace(cfg, render_backend="pallas_v3"),
-                t(x), 0, torch.Generator().manual_seed(0))
+    for backend in ("auto", "pallas_v3"):
+        got = grads(dataclasses.replace(cfg, render_backend=backend))
+        assert model.object_decoder.out.weight.grad is not None
+        for k, w in want.items():
+            assert_close(got[k], w.numpy(), rel=1e-3)
 
 
 def test_sample_noise_shapes_match_jax():
     cfg = tiny_config(n_object_slots=2)
     want = jax_noise(jax.random.PRNGKey(0), 3, (4, 4), cfg)
-    got = sample_noise(torch.Generator().manual_seed(0), 3, (4, 4), cfg)
+    got = sample_noise(torch.Generator().manual_seed(0), 3, (4, 4), tcfg(cfg))
     assert {k: tuple(v.shape) for k, v in got.items()} == \
         {k: tuple(v.shape) for k, v in want.items()}
-    again = sample_noise(torch.Generator().manual_seed(0), 3, (4, 4), cfg)
+    again = sample_noise(torch.Generator().manual_seed(0), 3, (4, 4),
+                         tcfg(cfg))
     assert all(torch.equal(got[k], again[k]) for k in got)

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from spair_pytorch_tpu.config import COUNT_PRIOR, TRAINING_WHEEL
+from spair_pytorch_tpu import config as jconfig
 from spair_pytorch_tpu.models import init_params as jax_init_params
 from spair_pytorch_tpu.ops import backbone as jbb
 from spair_pytorch_tpu.ops import math as jm
@@ -21,6 +21,7 @@ from spair_pytorch_tpu.ops import mlp as jmlp
 from spair_pytorch_tpu.ops import stn as jstn
 from spair_pytorch_tpu.ops.schedules import exponential_decay as jdecay
 from spair_pytorch_tpu.utils.interop import to_torch_state_dict
+from spair_pytorch_tpu_torch import config as tconfig
 from spair_pytorch_tpu_torch.models import init_params
 from spair_pytorch_tpu_torch.ops import backbone as tbb
 from spair_pytorch_tpu_torch.ops import math as tm
@@ -52,13 +53,19 @@ def t(a):
     return torch.from_numpy(np.array(a))
 
 
+def tcfg(cfg):
+    """The port's config equal to the JAX package's config ``cfg``: one
+    through the other's JSON."""
+    return tconfig.config_from_json(jconfig.config_to_json(cfg))
+
+
 def jax_params_np(cfg, seed=0):
     return jax.tree_util.tree_map(
         np.asarray, jax_init_params(jax.random.PRNGKey(seed), cfg))
 
 
 def ported_params(cfg, params_np):
-    return load_jax_params(init_params(cfg), params_np)
+    return load_jax_params(init_params(tcfg(cfg), device="cpu"), params_np)
 
 
 # ---------------------------------------------------------------- math
@@ -91,19 +98,19 @@ def test_math_matches_jax(name, jfn, tfn, args):
     assert_close(got, want)
 
 
-@pytest.mark.parametrize("sched", [TRAINING_WHEEL, COUNT_PRIOR],
+@pytest.mark.parametrize("sched", ["TRAINING_WHEEL", "COUNT_PRIOR"],
                          ids=["training_wheel", "count_prior"])
 @pytest.mark.parametrize("step", [0, 999, 1000, 1500, 50000])
 def test_exponential_decay_matches_jax(sched, step):
-    want = float(jdecay(step, sched))
-    got = exponential_decay(step, sched)
+    want = float(jdecay(step, getattr(jconfig, sched)))
+    got = exponential_decay(step, getattr(tconfig, sched))
     assert got.dtype == torch.float32 and got.dim() == 0
     assert abs(float(got) - want) <= 1e-6 * max(1.0, abs(want))
 
 
 def test_training_wheel_cliff():
-    assert float(exponential_decay(999, TRAINING_WHEEL)) == 1.0
-    assert float(exponential_decay(1000, TRAINING_WHEEL)) == 0.0
+    assert float(exponential_decay(999, tconfig.TRAINING_WHEEL)) == 1.0
+    assert float(exponential_decay(1000, tconfig.TRAINING_WHEEL)) == 0.0
 
 
 # ------------------------------------------------------------- backbone
@@ -112,8 +119,7 @@ def test_training_wheel_cliff():
     ((128, 128), None), ((48, 48), None), ((100, 70), ((8, 3, 2), (8, 4, 2))),
 ])
 def test_grid_geometry_matches_jax(hw, topo):
-    from spair_pytorch_tpu.config import BACKBONE_TOPOLOGY
-    topo = topo or BACKBONE_TOPOLOGY
+    topo = topo or jconfig.BACKBONE_TOPOLOGY
     assert tbb.grid_geometry(hw, topo) == jbb.grid_geometry(hw, topo)
 
 
@@ -136,7 +142,7 @@ def test_init_matches_reference_layout():
     the torch fan-in bounds, and a sigmoid-squashed edge element."""
     cfg = tiny_config()
     sd_ref = state_dict_from_jax(jax_params_np(cfg))
-    model = init_params(cfg, torch.Generator().manual_seed(0))
+    model = init_params(tcfg(cfg), torch.Generator().manual_seed(0), "cpu")
     sd = model.state_dict()
     assert sorted(sd) == sorted(sd_ref)
     for k, v in sd.items():
@@ -147,7 +153,8 @@ def test_init_matches_reference_layout():
     a = cfg.n_attributes
     squashed = torch.cat([edge[:4], edge[4 + a:]])
     assert bool(((squashed > 0) & (squashed < 1)).all())
-    again = init_params(cfg, torch.Generator().manual_seed(0)).state_dict()
+    again = init_params(tcfg(cfg), torch.Generator().manual_seed(0),
+                        "cpu").state_dict()
     assert all(torch.equal(sd[k], again[k]) for k in sd)
 
 

@@ -24,7 +24,7 @@ from spair_pytorch_tpu_torch.models import infer as tinfer
 from spair_pytorch_tpu_torch.serve import DetectorServer
 from tests.test_model import tiny_config
 from tests.test_torch_ops import (assert_close, jax_params_np, ported_params,
-                                  t)
+                                  t, tcfg)
 
 
 def random_boxes(seed, b=3, n=20):
@@ -72,7 +72,7 @@ def tiny_setup():
 def test_detect_matches_jax(tiny_setup, nms_iou):
     cfg, pnp, model, x = tiny_setup
     want = jinfer.detect(pnp, jnp.asarray(x), cfg, 0.5, nms_iou)
-    got = tinfer.make_detector(cfg, 0.5, nms_iou)(model, t(x))
+    got = tinfer.make_detector(tcfg(cfg), 0.5, nms_iou)(model, t(x))
     for k in ("boxes", "scores", "z_depth"):
         assert_close(got[k], np.asarray(want[k]))
     np.testing.assert_array_equal(got["count"].numpy(),
@@ -83,7 +83,7 @@ def test_server_matches_jax_server(tiny_setup):
     cfg, pnp, model, x = tiny_setup
     want = JaxServer(cfg, jax.tree_util.tree_map(jnp.asarray, pnp),
                      batch_sizes=(1, 4), pres_threshold=0.45).detect(x)
-    server = DetectorServer(cfg, model, batch_sizes=(1, 4),
+    server = DetectorServer(tcfg(cfg), model, batch_sizes=(1, 4),
                             pres_threshold=0.45)
     server.warmup()
     got = server.detect(x)

@@ -37,7 +37,8 @@ from spair_pytorch_tpu_torch.utils.debug import grad_norms_by_head
 from spair_pytorch_tpu_torch.utils.interop import (load_jax_adam_state,
                                                    state_dict_from_jax)
 from tests.test_model import tiny_config
-from tests.test_torch_ops import jax_params_np, ported_params, rel_err, t
+from tests.test_torch_ops import (jax_params_np, ported_params, rel_err, t,
+                                  tcfg)
 
 B, STEP = 2, 1500
 GRAD_REL, BF16_REL, BF16_GRAD_REL, LOSS_REL = 1e-3, 3e-2, 6e-2, 1e-4
@@ -82,7 +83,7 @@ def jax_value_and_grad(order, compute_dtype="float32"):
 
 def port_value_and_grad(model, cfg, x, noise, step=STEP):
     model.zero_grad(set_to_none=True)
-    loss, aux = forward(model, cfg, t(x), step, noise=tnoise(noise))
+    loss, aux = forward(model, tcfg(cfg), t(x), step, noise=tnoise(noise))
     loss.backward()
     return loss, aux, {k: p.grad for k, p in model.named_parameters()}
 
@@ -251,7 +252,7 @@ def jax_trajectory(cfg, params, opt_state, batches, step):
 def port_state(cfg, pnp, step):
     model = ported_params(cfg, pnp)
     return TrainState(step=torch.tensor(step), model=model,
-                      optimizer=optimizer(cfg, model),
+                      optimizer=optimizer(tcfg(cfg), model),
                       generator=torch.Generator())
 
 
@@ -273,7 +274,7 @@ def test_three_steps_match_jax_then_carry_the_state_across():
         cfg, pnp, opt.init(pnp), batches[:3], STEP)
 
     state = port_state(cfg, pnp, STEP)
-    losses = [float(train_step(cfg, state, t(x), noise=tnoise(noise))
+    losses = [float(train_step(tcfg(cfg), state, t(x), noise=tnoise(noise))
                     ["losses/total"]) for x, noise in batches[:3]]
     for got, want in zip(losses, losses_j):
         assert abs(got - want) < LOSS_REL * abs(want)
@@ -290,7 +291,7 @@ def test_three_steps_match_jax_then_carry_the_state_across():
     (loss_j,), params_j, _ = jax_trajectory(cfg, params_np, opt_np,
                                             batches[3:], STEP + 3)
     x, noise = batches[3]
-    loss = float(train_step(cfg, carried, t(x), noise=tnoise(noise))
+    loss = float(train_step(tcfg(cfg), carried, t(x), noise=tnoise(noise))
                  ["losses/total"])
     assert abs(loss - loss_j) < LOSS_REL * abs(loss_j)
     assert_params_close(carried.model, params_j, 2 * cfg.learning_rate)
@@ -305,7 +306,7 @@ def test_metric_keys_equal_jax():
         cfg, with_detection=True, donate=False), jstate, jbatch)
     state = port_state(cfg, jax_params_np(cfg), 0)
     x, _ = batch(0, cfg)
-    got = train_step(cfg, state, t(x), torch.zeros(B, 6, 4),
+    got = train_step(tcfg(cfg), state, t(x), torch.zeros(B, 6, 4),
                      torch.ones(B, 1))
     assert sorted(got) == sorted(want)
     assert all(v.dim() == 0 and not v.requires_grad for v in got.values())
@@ -335,16 +336,16 @@ def test_detection_metrics_match_jax():
 
 
 def test_steps_per_call_equals_single_steps():
-    cfg = tiny_config(inference_mode="wavefront", batch_size=B,
-                      pres_gate_threshold=0.01)
+    cfg = tcfg(tiny_config(inference_mode="wavefront", batch_size=B,
+                           pres_gate_threshold=0.01))
     bank = torch.as_tensor(glyph_bank((14, 14)))
     dcfg = DataConfig(image_hw=cfg.image_shape[1:],
                       min_objects=cfg.min_scene_objects,
                       max_objects=cfg.max_scene_objects)
     three = make_train_step(cfg, datagen=(dcfg, bank), steps_per_call=3)
     one = make_train_step(cfg, datagen=(dcfg, bank))
-    s3, m3 = three(create_train_state(cfg, seed=5))
-    s1 = create_train_state(cfg, seed=5)
+    s3, m3 = three(create_train_state(cfg, seed=5, device="cpu"))
+    s1 = create_train_state(cfg, seed=5, device="cpu")
     singles = [one(s1)[1] for _ in range(3)]
     assert int(s3.step) == int(s1.step) == 3
     for k, v in m3.items():
