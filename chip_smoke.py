@@ -12,7 +12,9 @@ CUDA card, with random weights from the preset's seed:
   3. kernel     the composite kernel against its plain PyTorch version at
                 paper128 shapes (B=32, N=121, C=1, 28x28 glimpses, 128x128
                 canvas): f32 ungated, f32 gated, all gated, bf16 glimpses,
-                den_floor_n; error = max |kernel - plain| / max |plain|;
+                den_floor_n; error = max |kernel - plain| / max |plain|
+                for each output (num, den; dcolor, dalpha, dimp, dbox) on
+                its own, as in every later phase;
   4. eval step  make_eval_step on a generated batch of 32, through the
                 kernel ('auto') and through the plain compositor ('xla');
                 ungated and with pres_gate_threshold=0.01;
@@ -37,17 +39,15 @@ CUDA card, with random weights from the preset's seed:
                 kernels against their plain versions on the compositor
                 inputs that the trained state's inference and decoder make
                 for a generated batch of 128 (f32 glimpses, the 0.01 gate);
- 10. times      the backward kernel against its plain version at B=32 and
-                B=128, each first held against it on the timed inputs;
- 11. v3         K3 and K4 (csrc/composite_v3_*.cu) against their plain
+ 10. v3         K3 and K4 (csrc/composite_v3_*.cu) against their plain
                 versions at paper128 shapes, B=32 and B=128, boxes from the
                 model's parameterization: f32 ungated, f32 with about half
                 the objects zeroed as the gate zeroes them, bf16 glimpses
                 against f32 truth, all gated; K3 against K1 on the same
                 inputs;
- 12. v3 times   K1, K2, K3, K4 and the plain K3/K4 on the same inputs in one
-                call, at B=32 and B=128, with each kernel's bound;
- 13. v3 path    the training entry point, train(), at paper128, bf16,
+ 11. v3 times   K1, K2, K3, K4 and their plain versions on the same inputs
+                in one call, at B=32 and B=128, with each kernel's bound;
+ 12. v3 path    the training entry point, train(), at paper128, bf16,
                 wavefront, gate 0.01, b128, render_backend='pallas_v3',
                 steps_per_call=10: 20 steps with checkpoints and held-out
                 evaluation every 10, a restore checked tensor for tensor,
@@ -127,23 +127,33 @@ def random_glimpses(b, n, gen, dev, c=C):
     return color, alpha, imp, boxes.contiguous()
 
 
+# the outputs a compositor call returns, in order
+OUTPUTS = {2: ("num", "den"), 4: ("dcolor", "dalpha", "dimp", "dbox")}
+
+
 def rel_err(got, want):
-    """(max |got - want| / max |want|, max |got - want|) over all outputs."""
-    abs_err = max(float((g.float() - w).abs().max())
-                  for g, w in zip(got, want))
-    scale = max(float(w.abs().max()) for w in want)
-    return abs_err / scale, abs_err
+    """([max |got - want| / max |want| for each output], max |got - want|
+    over all of them). Each output is held to its own scale, so a large one
+    (dbox) does not loosen the bar on a small one (dG)."""
+    rels, abs_err = [], 0.0
+    for g, w in zip(got, want):
+        err, scale = float((g.float() - w).abs().max()), float(w.abs().max())
+        rels.append(err / scale if scale else (math.inf if err else 0.0))
+        abs_err = max(abs_err, err)
+    return rels, abs_err
 
 
-def check(tag, name, bar, got, want):
-    """Hold a kernel's outputs against its plain version's; raises above
-    ``bar``, returns the max abs error."""
+def check(tag, name, bar, got, want, names=None):
+    """Hold a kernel's outputs against its plain version's, each output on
+    its own; raises if any is above ``bar``, returns the max abs error."""
     torch.cuda.synchronize()
-    rel, abs_err = rel_err(got, want)
-    phase(tag, f"{name}: rel err {rel:.3e} (bar {bar:g}), max abs err "
-               f"{abs_err:.3e}")
-    if not rel < bar:
-        raise AssertionError(f"{tag} case {name} disagrees: {rel}")
+    rels, abs_err = rel_err(got, want)
+    names = names or OUTPUTS[len(rels)]
+    phase(tag, f"{name}: rel err " + ", ".join(
+        f"{n} {r:.3e}" for n, r in zip(names, rels))
+        + f" (bar {bar:g}), max abs err {abs_err:.3e}")
+    if not max(rels) < bar:
+        raise AssertionError(f"{tag} case {name} disagrees: {rels}")
     return abs_err
 
 
@@ -479,30 +489,6 @@ def main_path_inputs(state, cfg, dcfg, bank):
     return (*glimpses, flat["z_where"].contiguous()), gate.contiguous()
 
 
-def backward_times(K, card, dev):
-    """CUDA-event ms of the backward kernel and its plain version, in turns
-    (plain, kernel, kernel, plain), at B=32 and B=128, each held against
-    its plain version on the inputs it is timed on."""
-    times = {}
-    for b in (32, 128):
-        gen = torch.Generator(device=dev).manual_seed(b + 1)
-        inputs = random_glimpses(b, N, gen, dev)
-        dnum, dden = random_cotangents(b, gen, dev)
-        held_at(K, inputs, random_gate(b, gen, dev), (dnum, dden))
-
-        def kern():
-            K.composite_backward(*inputs, HW, dnum, dden)
-
-        def plain():
-            K.composite_backward_plain(*inputs, HW, dnum, dden)
-
-        p1, k1, k2, p2 = (cuda_ms(f, 10) for f in (plain, kern, kern, plain))
-        times[b] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        phase("time", f"composite backward B={b}: kernel {times[b][0]:.4f} "
-                      f"ms, plain {times[b][1]:.4f} ms ({card})")
-    return times
-
-
 def banded_glimpses(b, gen, dev):
     """paper128 glimpses (as random_glimpses draws them) on boxes from the
     model's parameterization: each object's centre in its cell + [-0.5,
@@ -579,7 +565,7 @@ def v3_phase(V, K, dev):
         errs4.append(check(
             "v3", f"K4 B={b} all gated, importance gradient py^T dden px",
             GRAD_BAR, grads[2:3], V.composite_v3_backward_plain(
-                *zero, *V3_GEOM, *cot)[2:3]))
+                *zero, *V3_GEOM, *cot)[2:3], names=("dimp",)))
         # what render hands upstream: gradients through the gate's mask
         leaves = [t.clone().requires_grad_(True) for t in inputs]
         out = V.composite_v3(*masked(leaves, torch.zeros_like(gate)),
@@ -943,16 +929,13 @@ def main():
     # 9. the training main path
     launches = main_path_phase(K, card, dev)
 
-    # 10. backward times
-    backward_times(K, card, dev)
-
-    # 11. K3 and K4 against their plain versions
+    # 10. K3 and K4 against their plain versions
     v3_errs = v3_phase(V, K, dev)
 
-    # 12. K1-K4 on the same inputs
+    # 11. K1-K4 on the same inputs
     same = v3_times(V, K, card, dev)[TRAIN_B]
 
-    # 13. the slice's path: train() through 'pallas_v3'
+    # 12. the slice's path: train() through 'pallas_v3'
     v3_launches = v3_path_phase(V, K, card, dev)
 
     # the kernels at the main paths' batch, B=128, on the same inputs
