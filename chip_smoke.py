@@ -8,7 +8,8 @@ CUDA card, with random weights from the preset's seed:
   1. device     the card's name and power limit (nvidia-smi);
   2. build      compiles csrc/composite_fwd.cu, composite_bwd.cu,
                 composite_v3_fwd.cu and composite_v3_bwd.cu, one nvcc each,
-                started together;
+                started together; ptxas's registers, spills and shared
+                memory for each K1 and K2 instantiation;
   3. kernel     the composite kernel against its plain PyTorch version at
                 paper128 shapes (B=32, N=121, C=1, 28x28 glimpses, 128x128
                 canvas): f32 ungated, f32 gated, all gated, bf16 glimpses,
@@ -38,7 +39,9 @@ CUDA card, with random weights from the preset's seed:
                 and img/s, the device-busy share of one step; then both
                 kernels against their plain versions on the compositor
                 inputs that the trained state's inference and decoder make
-                for a generated batch of 128 (f32 glimpses, the 0.01 gate);
+                for a generated batch of 128 (f32 glimpses, the 0.01 gate),
+                and their times there beside their plain versions and
+                bounds;
  10. v3         K3 and K4 (csrc/composite_v3_*.cu) against their plain
                 versions at paper128 shapes, B=32 and B=128, boxes from the
                 model's parameterization: f32 ungated, f32 with about half
@@ -46,7 +49,8 @@ CUDA card, with random weights from the preset's seed:
                 against f32 truth, all gated; K3 against K1 on the same
                 inputs;
  11. v3 times   K1, K2, K3, K4 and their plain versions on the same inputs
-                in one call, at B=32 and B=128, with each kernel's bound;
+                in one call, at B=32 and B=128, with each kernel's bound,
+                its share of it and the bound's bytes over its time;
  12. v3 path    the training entry point, train(), at paper128, bf16,
                 wavefront, gate 0.01, b128, render_backend='pallas_v3',
                 steps_per_call=10: 20 steps with checkpoints and held-out
@@ -96,6 +100,41 @@ EVAL_KEYS = ("ap_at_30", "ap_at_40", "ap_at_50", "ap_at_60",
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def card_name():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def demangle(symbol):
+    """A kernel's C++ name without its argument list (c++filt where the
+    machine has it, else the symbol as it is)."""
+    import shutil
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if tool is None:
+        return symbol
+    name = subprocess.run([tool, symbol], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    return name.replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def print_ptxas(K, name, label="build"):
+    """Each kernel's registers, spills and shared memory in the build of
+    ``name``, from nvcc's -Xptxas -v report."""
+    entry, spill = None, ""
+    for line in K.ptxas_report(name).splitlines():
+        if "Compiling entry function" in line:
+            entry = demangle(line.split("'")[1])
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            phase(label, f"{name} {entry}: "
+                           f"{line.split(':', 1)[1].strip()}; {spill}")
+            entry, spill = None, ""
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -465,8 +504,35 @@ def main_path_phase(K, card, dev):
     inputs, gate = main_path_inputs(state, cfg, dcfg, bank)
     phase("main", f"main-path compositor inputs: glimpses {inputs[0].dtype},"
                   f" {int(gate.sum())} of {gate.numel()} objects live")
-    held_at(K, inputs, gate, random_cotangents(
-        TRAIN_B, torch.Generator(device=dev).manual_seed(5), dev))
+    cot = random_cotangents(TRAIN_B, torch.Generator(device=dev).manual_seed(5),
+                            dev)
+    held_at(K, inputs, gate, cot)
+    # their times on these inputs, kernel and plain version in turns
+    fns = {"K1": lambda: K.composite_forward(*inputs, HW, WIN,
+                                             pres_gate=gate),
+           "plain K1": lambda: K.composite_plain(*inputs, HW,
+                                                 pres_gate=gate),
+           "K2": lambda: K.composite_backward(*inputs, HW, *cot,
+                                              pres_gate=gate),
+           "plain K2": lambda: K.composite_backward_plain(*inputs, HW, *cot,
+                                                          pres_gate=gate)}
+    got = {k: [] for k in fns}
+    with torch.no_grad():
+        for k in ("plain K1", "K1", "K1", "plain K1", "plain K2", "K2", "K2",
+                  "plain K2"):
+            got[k].append(cuda_ms(fns[k], 5 if k.startswith("plain")
+                                  else 20))
+    for k, fwd in (("K1", True), ("K2", False)):
+        bms, by, moved = bound(TRAIN_B, C, inputs[0].element_size(), fwd,
+                               support_pairs(inputs[3], gate=gate),
+                               live=float(gate.sum()))
+        t = sum(got[k]) / 2
+        phase("main", f"{k} on the main path's inputs (b{TRAIN_B}, "
+                      f"{inputs[0].dtype}, gate 0.01): "
+                      f"{', '.join(f'{x:.4f}' for x in got[k])} ms, plain "
+                      f"{', '.join(f'{x:.4f}' for x in got['plain ' + k])} "
+                      f"ms; bound {bms:.4f} ms ({by}), {bms / t:.1%} of it;"
+                      f" achieved {moved / t / 1e6:.1f} GB/s ({card})")
     return launches
 
 
@@ -584,30 +650,36 @@ def v3_phase(V, K, dev):
     return max(errs3), max(errs4)
 
 
-def bound(b, c, glimpse_bytes, forward, pairs):
-    """(least ms, 'bytes' or 'operations') for one compositor call: each
-    input read once and each output written once, against the card's HBM
-    rate; and an estimate of the gather's arithmetic (per object and
-    support pixel, (C + 2) bilinear samples of 9 operations and ~3C + 2
-    more; four times that in the backward) against the f32 peak."""
-    glimpses = b * N * (c + 2) * OH * OW * glimpse_bytes
+def bound(b, c, glimpse_bytes, forward, pairs, live=None):
+    """(least ms, 'bytes' or 'operations', bytes moved) for one compositor
+    call: each input read once and each output written once, against the
+    card's HBM rate; and an estimate of the gather's arithmetic (per object
+    and support pixel, (C + 2) bilinear samples of 9 operations and ~3C + 2
+    more; four times that in the backward) against the f32 peak. ``live``
+    objects (default all b * N) have glimpses to read; the backward writes
+    every object's gradient."""
+    per_object = (c + 2) * OH * OW * glimpse_bytes
+    read = (b * N if live is None else live) * per_object
     canvas = b * (c + 1) * HW[0] * HW[1] * 4
     boxes = b * N * 4 * 4
     if forward:
-        moved = glimpses + boxes + canvas
+        moved = read + boxes + canvas
         ops = pairs * (9 * (c + 2) + 3 * c + 2)
     else:  # glimpses, boxes, dnum, dden in; dG, dbox out
-        moved = 2 * glimpses + 2 * boxes + canvas
+        moved = read + b * N * per_object + 2 * boxes + canvas
         ops = 4 * pairs * (9 * (c + 2) + 3 * c + 2)
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", moved
+    return t_ops, "operations", moved
 
 
-def support_pairs(boxes, band_rows=None):
+def support_pairs(boxes, band_rows=None, gate=None):
     """Canvas pixels inside each object's paste support (sy in (-1, oh),
     sx in (-1, ow)), summed over the objects; with ``band_rows`` (N, H)
-    only the rows of each object's band count."""
+    only the rows of each object's band count, with ``gate`` (B, N) only
+    the objects whose gate is nonzero."""
     from spair_pytorch_tpu_torch.ops.stn import _source_coords_paste
     xt, yt, xs, ys = boxes.unbind(-1)
     sy = _source_coords_paste(yt, ys, HW[0], OH)
@@ -616,7 +688,10 @@ def support_pairs(boxes, band_rows=None):
     if band_rows is not None:
         rows = rows * band_rows
     cols = ((sx > -1) & (sx < OW)).float()
-    return float((rows.sum(-1) * cols.sum(-1)).sum())
+    per_object = rows.sum(-1) * cols.sum(-1)
+    if gate is not None:
+        per_object = per_object * (gate != 0)
+    return float(per_object.sum())
 
 
 def v3_times(V, K, card, dev):
@@ -663,11 +738,12 @@ def v3_times(V, K, card, dev):
                       "K4": bound(b, C, 4, False, clipped)}
         times[b] = t
         for k in ("K1", "K3", "K2", "K4"):
-            bms, by = t["bound"][k]
+            bms, by, moved = t["bound"][k]
             plain = f", plain {t['plain ' + k]:.4f} ms"
             phase("time", f"{k} B={b}: {t[k]:.4f} ms{plain}; bound "
-                          f"{bms:.4f} ms ({by}), {bms / t[k]:.1%} of it "
-                          f"({card})")
+                          f"{bms:.4f} ms ({by}), {bms / t[k]:.1%} of it; "
+                          f"achieved {moved / t[k] / 1e6:.1f} GB/s of the "
+                          f"bound's bytes ({card})")
         phase("time", f"B={b}: K3/K1 {t['K3'] / t['K1']:.3f}, K4/K2 "
                       f"{t['K4'] / t['K2']:.3f}")
     return times
@@ -804,10 +880,7 @@ def main():
     torch.cuda.set_device(dev)
 
     # 1. device
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_name()
     print(card, flush=True)
     phase("device", f"{torch.cuda.get_device_name(0)}; torch "
                     f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -819,6 +892,8 @@ def main():
         K.load_library(name)
     phase("build", f"{', '.join(p.name for p in libs.values())} in "
                    f"{time.perf_counter() - t0:.2f} s")
+    for name in ("composite_fwd", "composite_bwd"):
+        print_ptxas(K, name)
 
     # 3. kernel against plain version
     with torch.no_grad():

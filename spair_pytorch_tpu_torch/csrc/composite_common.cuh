@@ -116,6 +116,20 @@ __device__ __forceinline__ void sample(const float* g, const Taps& t,
         t.wy1 * (t.ex0 * g10 + t.ex1 * g11);
 }
 
+// sample() for a plane held in its own dtype (f32 or bf16), widened on read
+template <typename T>
+__device__ __forceinline__ void sample_widen(const T* g, const Taps& t,
+                                             float* v, float* vy, float* vx) {
+  const float g00 = widen(g[t.r0 + t.q0]), g01 = widen(g[t.r0 + t.q1]);
+  const float g10 = widen(g[t.r1 + t.q0]), g11 = widen(g[t.r1 + t.q1]);
+  const float top = t.wx0 * g00 + t.wx1 * g01;
+  const float bot = t.wx0 * g10 + t.wx1 * g11;
+  *v = t.wy0 * top + t.wy1 * bot;
+  *vy = t.ey0 * top + t.ey1 * bot;
+  *vx = t.wy0 * (t.ex0 * g00 + t.ex1 * g01) +
+        t.wy1 * (t.ex0 * g10 + t.ex1 * g11);
+}
+
 // Reduce four per-thread sums over a block of kNumWarps warps: shuffles
 // within each warp, then warp by warp in order through sred (kNumWarps x 4
 // floats). Thread 0 gets the totals in out; every thread must call it.

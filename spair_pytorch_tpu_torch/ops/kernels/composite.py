@@ -8,7 +8,8 @@ and ``csrc/composite_bwd.cu`` or raise; for CPU tensors they run
 ``composite_plain`` (the chunked PyTorch compositor ported from
 ``models/render.py::composite_xla``) and ``composite_backward_plain`` (the
 Pallas backward's formulas as tensor code), which are also the kernels'
-oracles.
+oracles. ``cull_tiles`` is the forward kernel's per-tile culling rule in
+plain PyTorch, for the tests; nothing on a path calls it.
 
 The kernels (these two and ``ops/kernels/composite_v3.py``'s) are compiled
 with ``nvcc`` at first use into ``_build/``, one library per source, named
@@ -40,9 +41,13 @@ SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
 HEADERS = (_PKG / "csrc" / "composite_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-# shared memory a backward block aims at, then the most one may take
-_BWD_SMEM_BUDGETS = (64 * 1024, 227 * 1024)
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the most shared memory one block of a backward kernel (K2, K4) may take
+_BWD_SMEM_MAX = 227 * 1024
+# objects K1 culls per pass (csrc/composite_fwd.cu kChunk)
+CULL_CHUNK = 128
+# support pixels in one of K2's dP tiles, before the shared-memory budget
+BWD_TILE_PX = 2048
 
 
 def composite_plain(color, alpha, importance, boxes, image_hw,
@@ -183,6 +188,61 @@ def _backward_objects(g, boxes, dnum, dden, c: int, image_hw, row_keep=None):
     return dg, dbox
 
 
+def canvas_range(src_lo: float, src_hi: float, canvas: int, t, s,
+                 glimpse: int):
+    """``csrc/composite_common.cuh::canvas_range`` in float32, elementwise
+    over box centres ``t`` and scales ``s``: (lo, hi) int64, the canvas
+    indices whose glimpse coordinate may lie in (src_lo, src_hi), widened by
+    two indices against rounding and clamped to the canvas (lo > hi when
+    empty). fmin/fmax drop a NaN operand, so a degenerate box scans the
+    whole canvas, as in the kernels."""
+    f32 = torch.float32
+    t, s = t.to(f32), s.to(f32)
+    k = torch.tensor(2.0, dtype=f32) / torch.tensor(float(glimpse - 1),
+                                                    dtype=f32)
+    half = (canvas - 1) / 2.0
+    a = ((src_lo * k - 1.0) * s + 2.0 * t) * half
+    b = ((src_hi * k - 1.0) * s + 2.0 * t) * half
+    zero = torch.zeros((), dtype=f32)
+    lo = torch.fmin(torch.fmax(torch.floor(torch.fmin(a, b)) - 2.0, zero),
+                    zero + canvas)
+    hi = torch.fmax(torch.fmin(torch.ceil(torch.fmax(a, b)) + 2.0,
+                               zero + (canvas - 1)), zero - 1.0)
+    return lo.to(torch.int64), hi.to(torch.int64)
+
+
+def cull_tiles(boxes, image_hw, object_hw, tile=(32, 8), pres_gate=None):
+    """K1's culling rule in plain PyTorch: which objects each canvas tile
+    lists. Not on any path; the tests hold it against the JAX paste
+    weights.
+
+    boxes (B, N, 4) [xt, yt, xs, ys]; ``tile`` (rows, columns), by default
+    the kernel's (``csrc/composite_fwd.cu`` kTileH, kTileW). Returns a
+    bool mask (B, tiles_y, tiles_x, N): object o is listed for a tile when
+    its gate is nonzero and its support (``canvas_range`` over the glimpse
+    coordinates (-1, oh) and (-1, ow)) meets the tile. ``mask[b, i, j]
+    .nonzero()`` is tile (i, j)'s list, in object order as the kernel sums
+    it."""
+    ih, iw = image_hw
+    oh, ow = object_hw
+    th, tw = tile
+    xt, yt, xs, ys = boxes.to(torch.float32).unbind(-1)
+    ylo, yhi = canvas_range(-1.0, float(oh), ih, yt, ys, oh)
+    xlo, xhi = canvas_range(-1.0, float(ow), iw, xt, xs, ow)
+
+    def meets(lo, hi, size, step):
+        start = torch.arange(0, size, step, device=boxes.device)
+        return torch.maximum(lo[..., None], start) <= \
+            torch.minimum(hi[..., None], start + step - 1)
+
+    rows = meets(ylo, yhi, ih, th)                       # (B, N, tiles_y)
+    cols = meets(xlo, xhi, iw, tw)                       # (B, N, tiles_x)
+    live = rows[..., :, None] & cols[..., None, :]       # (B, N, ty, tx)
+    if pres_gate is not None:
+        live = live & (pres_gate != 0)[..., None, None]
+    return live.permute(0, 2, 3, 1)
+
+
 def _find_nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -230,10 +290,18 @@ def build_library(build_dir: Path = BUILD_DIR) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{name} ({proc.returncode}):\n{err}")
         else:
+            todo[name].with_suffix(".log").write_text(err)
             os.replace(tmp, todo[name])
     if failed:
         raise RuntimeError("nvcc failed on " + "\n".join(failed))
     return outs
+
+
+def ptxas_report(name: str, build_dir: Path = BUILD_DIR) -> str:
+    """What ``-Xptxas -v`` said when ``SOURCES[name]`` was built: each
+    kernel's registers, shared memory and spills ('' before a build)."""
+    log = library_path(name, build_dir).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 @functools.lru_cache(maxsize=None)
@@ -247,7 +315,7 @@ def load_library(name: str) -> ctypes.CDLL:
                                     i32)},
         "composite_bwd": {
             "spair_composite_bwd": ([ptr] * 9 + [i32] * 9 + [ptr], i32),
-            "spair_composite_bwd_smem": ([i32] * 6, ctypes.c_size_t)},
+            "spair_composite_bwd_smem": ([i32] * 7, ctypes.c_size_t)},
         "composite_v3_fwd": {
             "spair_composite_v3_fwd": ([ptr] * 7 + [i32] * 9 + [f32, i32, ptr],
                                        i32)},
@@ -293,7 +361,8 @@ def _check_cuda_inputs(color, alpha, importance, boxes, pres_gate, image_hw):
     ih, iw = image_hw
     if min(ih, iw, oh, ow) < 2:
         raise ValueError("canvas and glimpse sides must be at least 2")
-    if b > 65535 or 5 * n * 4 > 48 * 1024 or ih * iw >= 2 ** 31:
+    # grid rows are images; K2 numbers the objects b * n with an int
+    if b > 65535 or b * n >= 2 ** 31 or ih * iw >= 2 ** 31:
         raise ValueError(f"shape out of the kernel's range: B={b}, N={n}, "
                          f"H*W={ih * iw}")
     return b, n, c, oh, ow
@@ -368,14 +437,16 @@ composite_forward.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_tile_rows(c: int, oh: int, ow: int, ih: int, iw: int) -> int:
-    """Canvas rows per tile of the backward kernel: the most (up to 32)
-    whose shared memory fits the first budget that admits one row."""
+def _bwd_tile_px(c: int, oh: int, ow: int, ih: int, iw: int,
+                 is_bf16: int) -> int:
+    """Support pixels per dP tile of the backward kernel: ``BWD_TILE_PX``,
+    halved until a block's shared memory fits ``_BWD_SMEM_MAX``."""
     smem = load_library("composite_bwd").spair_composite_bwd_smem
-    for budget in _BWD_SMEM_BUDGETS:
-        for rows in range(min(32, ih), 0, -1):
-            if smem(c, oh, ow, ih, iw, rows) <= budget:
-                return rows
+    px = BWD_TILE_PX
+    while px >= 1:
+        if smem(c, oh, ow, ih, iw, px, is_bf16) <= _BWD_SMEM_MAX:
+            return px
+        px //= 2
     raise ValueError(f"glimpses of {c + 2} x {oh} x {ow} and a {ih} x {iw} "
                      f"canvas do not fit the backward kernel's shared memory")
 
@@ -396,7 +467,8 @@ def composite_backward(color, alpha, importance, boxes, image_hw, dnum, dden,
     ih, iw = image_hw
     _check_cotangents(dnum, dden, b, c, image_hw)
     lib = load_library("composite_bwd")
-    tile_rows = _bwd_tile_rows(c, oh, ow, ih, iw)
+    is_bf16 = int(color.dtype == torch.bfloat16)
+    tile_px = _bwd_tile_px(c, oh, ow, ih, iw, is_bf16)
     dg = torch.empty((b, n, c + 2, oh, ow), dtype=color.dtype, device=device)
     dbox = torch.empty((b, n, 4), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
@@ -406,8 +478,7 @@ def composite_backward(color, alpha, importance, boxes, image_hw, dnum, dden,
             boxes.data_ptr(),
             None if pres_gate is None else pres_gate.data_ptr(),
             dnum.data_ptr(), dden.data_ptr(), dg.data_ptr(), dbox.data_ptr(),
-            b, n, c, oh, ow, ih, iw, tile_rows,
-            int(color.dtype == torch.bfloat16), stream)
+            b, n, c, oh, ow, ih, iw, tile_px, is_bf16, stream)
     _raise_on(lib, err, "composite_bwd")
     composite_backward.launches += 1
     return dg[:, :, :c], dg[:, :, c:c + 1], dg[:, :, c + 1:], dbox

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from spair_pytorch_tpu_torch.ops.kernels.composite import (
-    _BWD_SMEM_BUDGETS, _EPS, _check_cotangents, _check_cuda_inputs,
+    _BWD_SMEM_MAX, _EPS, _check_cotangents, _check_cuda_inputs,
     _device_of, _raise_on, composite_backward_plain, composite_plain,
     load_library)
 
@@ -134,6 +134,9 @@ def composite_v3_forward(color, alpha, importance, boxes, image_hw,
 
     b, n, c, oh, ow = _check_cuda_inputs(color, alpha, importance, boxes,
                                          None, image_hw)
+    if 16 * n > 48 * 1024:  # K3 keeps an image's boxes in shared memory
+        raise ValueError(f"N={n} objects' boxes do not fit K3's shared "
+                         f"memory")
     gh, gw = grid_hw
     ih, iw = image_hw
     band, starts = _bands(n, image_hw, cell_h, grid_hw, box_bounds, oh)
@@ -162,7 +165,7 @@ def _bwd_tile_rows(c: int, oh: int, ow: int, iw: int, band: int) -> int:
     smem = load_library("composite_v3_bwd").spair_composite_v3_bwd_smem
     for rows in range(min(32, band), 0, -1):
         # the card's per-block limit: the band staging sets the size
-        if smem(c, oh, ow, iw, band, rows) <= _BWD_SMEM_BUDGETS[-1]:
+        if smem(c, oh, ow, iw, band, rows) <= _BWD_SMEM_MAX:
             return rows
     raise ValueError(f"a band of {band} x {iw} canvas rows and {c + 2} x "
                      f"{oh} x {ow} glimpses do not fit K4's shared memory")

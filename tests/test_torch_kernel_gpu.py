@@ -169,6 +169,122 @@ def test_autograd_function_matches_autograd_through_plain(cuda):
     assert rel(got, want) < GRAD_BARS["float32"]
 
 
+# ------------------------------- K1 / K2 edge cases: culling, tiles, stages
+
+def held(glimpses, boxes, hw, dev, gate=None, dtype="float32", seed=0):
+    """K1 and K2 on the glimpses in ``dtype`` against their plain versions
+    on the f32 glimpses; returns the kernels' outputs."""
+    low = [g.to(getattr(torch, dtype)) for g in glimpses]
+    dnum, dden = cotangents(seed, boxes.shape[0], glimpses[0].shape[2], hw,
+                            dev)
+    with torch.no_grad():
+        fwd = K.composite_forward(*low, boxes, hw, pres_gate=gate)
+        bwd = K.composite_backward(*low, boxes, hw, dnum, dden,
+                                   pres_gate=gate)
+        torch.cuda.synchronize()
+        want_f = K.composite_plain(*glimpses, boxes, hw, pres_gate=gate)
+        want_b = K.composite_backward_plain(*glimpses, boxes, hw, dnum, dden,
+                                            pres_gate=gate)
+    for g, w in zip(fwd, want_f):
+        assert rel((g,), (w,)) < BARS[dtype]
+    for g, w in zip(bwd, want_b):
+        assert g.shape == w.shape
+        assert rel((g.float(),), (w,)) < GRAD_BARS[dtype]
+    return fwd, bwd
+
+
+def boxes_of(rows, b, n, dev):
+    """(b, n, 4) boxes cycling through ``rows`` of [xt, yt, xs, ys]."""
+    t = torch.tensor(rows, dtype=torch.float32, device=dev)
+    return t[torch.arange(n, device=dev) % len(rows)].expand(b, n, 4) \
+        .contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(BARS))
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+def test_main_shape_kernels_match_plain(cuda, dtype, gated):
+    """C = 1, 28 x 28 glimpses on a 128 x 128 canvas: K2's compile-time
+    instantiation and its asynchronous glimpse stages."""
+    glimpses, boxes, gate = inputs(30, 4, 121, 1, cuda, gated, 0.375, g=28)
+    held(glimpses, boxes, (128, 128), cuda, gate, dtype)
+
+
+@pytest.mark.gpu
+def test_all_objects_on_one_box(cuda):
+    glimpses, _, _ = inputs(31, 2, 121, 1, cuda, False, g=28)
+    boxes = boxes_of([[0.3, 0.6, 0.2, 0.25]], 2, 121, cuda)
+    held(glimpses, boxes, (128, 128), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [14, 28])
+def test_boxes_larger_than_the_canvas(cuda, g):
+    glimpses, _, _ = inputs(32, 2, 5, 1, cuda, False, g=g)
+    boxes = boxes_of([[0.5, 0.5, 2.0, 3.0], [0.1, 0.9, 4.0, 1.5],
+                      [-0.3, 1.2, 2.5, 2.5], [0.5, 0.5, 1.0, 1.0],
+                      [0.7, 0.2, 1e-3, 1e-3]], 2, 5, cuda)
+    held(glimpses, boxes, (72, 56), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_px", [16, 100])
+@pytest.mark.parametrize("c", [1, 3])
+def test_supports_past_every_tile(cuda, monkeypatch, tile_px, c):
+    """Supports taller and wider than K1's 32 x 8 tile and K2's dP tile:
+    K2 walks them in row and column tiles."""
+    monkeypatch.setattr(K, "BWD_TILE_PX", tile_px)
+    K._bwd_tile_px.cache_clear()
+    try:
+        glimpses, boxes, gate = inputs(33, 2, 20, c, cuda, True, 1.5, g=28)
+        held(glimpses, boxes, (72, 56), cuda, gate)
+    finally:
+        K._bwd_tile_px.cache_clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [14, 28])
+def test_one_image_one_object(cuda, g):
+    glimpses, boxes, _ = inputs(34, 1, 1, 1, cuda, False, g=g)
+    held(glimpses, boxes, (40, 48), cuda)
+
+
+@pytest.mark.gpu
+def test_objects_past_the_cull_chunk(cuda):
+    """N = 300: K1 culls in chunks of K.CULL_CHUNK and keeps object order."""
+    glimpses, boxes, gate = inputs(35, 2, 300, 1, cuda, True, 0.3, g=28)
+    held(glimpses, boxes, (64, 64), cuda, gate)
+
+
+@pytest.mark.gpu
+def test_unaligned_glimpses(cuda):
+    """Glimpses 4 bytes off 16-byte alignment: K2 copies the planes itself
+    instead of with the bulk copy."""
+    glimpses, boxes, _ = inputs(36, 2, 30, 1, cuda, False, g=28)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    moved = [shifted(g) for g in glimpses]
+    assert moved[0].data_ptr() % 16 != 0 and moved[0].is_contiguous()
+    held(moved, boxes, (128, 128), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [14, 28])
+def test_two_launches_agree_bit_for_bit(cuda, g):
+    glimpses, boxes, gate = inputs(37, 8, 121, 1, cuda, True, 0.375, g=g)
+    hw = (128, 128)
+    dnum, dden = cotangents(37, 8, 1, hw, cuda)
+    runs = [(*K.composite_forward(*glimpses, boxes, hw, pres_gate=gate),
+             *K.composite_backward(*glimpses, boxes, hw, dnum, dden,
+                                   pres_gate=gate)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 # --------------------------------------------------- K3 / K4 (composite_v3)
 
 HW3, CELL3, GRID3 = (48, 48), 12, (4, 4)
