@@ -6,10 +6,11 @@ point through the banded compositor ('pallas_v3') at paper128 width on one
 CUDA card, with random weights from the preset's seed:
 
   1. device     the card's name and power limit (nvidia-smi);
-  2. build      compiles csrc/composite_fwd.cu, composite_bwd.cu,
-                composite_v3_fwd.cu and composite_v3_bwd.cu, one nvcc each,
-                started together; ptxas's registers, spills and shared
-                memory for each K1 and K2 instantiation;
+  2. build      compiles csrc/composite_fwd.cu (K1, and K3 as its banded
+                instantiation) and csrc/composite_bwd.cu (K2, and K4 as
+                its launch with a band), one nvcc each, started together;
+                ptxas's registers, spills and stack for every
+                instantiation;
   3. kernel     the composite kernel against its plain PyTorch version at
                 paper128 shapes (B=32, N=121, C=1, 28x28 glimpses, 128x128
                 canvas): f32 ungated, f32 gated, all gated, bf16 glimpses,
@@ -42,12 +43,13 @@ CUDA card, with random weights from the preset's seed:
                 for a generated batch of 128 (f32 glimpses, the 0.01 gate),
                 and their times there beside their plain versions and
                 bounds;
- 10. v3         K3 and K4 (csrc/composite_v3_*.cu) against their plain
-                versions at paper128 shapes, B=32 and B=128, boxes from the
-                model's parameterization: f32 ungated, f32 with about half
-                the objects zeroed as the gate zeroes them, bf16 glimpses
-                against f32 truth, all gated; K3 against K1 on the same
-                inputs;
+ 10. v3         K3 and K4 (K1's and K2's kernels launched with paper128's
+                bands) against their plain versions at paper128 shapes,
+                B=32 and B=128, boxes from the model's parameterization:
+                f32 ungated, f32 with about half the objects zeroed as the
+                gate zeroes them, bf16 glimpses against f32 truth, all
+                gated; K3 against K1 on the same inputs (equal bit for bit
+                where every box lies in its band);
  11. v3 times   K1, K2, K3, K4 and their plain versions on the same inputs
                 in one call, at B=32 and B=128, with each kernel's bound,
                 its share of it and the bound's bytes over its time;
@@ -57,7 +59,9 @@ CUDA card, with random weights from the preset's seed:
                 evaluation every 10, a restore checked tensor for tensor,
                 then a resumed run of 10 more; K3 and K4 launch counts, the
                 eval keys, K3/K4 against their plain versions on the path's
-                own compositor inputs; then the same step timed alone.
+                own compositor inputs and their times there beside their
+                plain versions and bounds; then the same step timed alone,
+                and one step's device time under the profiler.
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
 cuDNN convs in full f32), so kernels and plain versions are compared on the
@@ -589,6 +593,16 @@ def v3_held(V, tag, inputs, cotangents):
     return e3, e4
 
 
+def band_rows(dev):
+    """(N, H) 1.0 on the canvas rows of each paper128 object's band."""
+    from spair_pytorch_tpu_torch.ops.kernels.composite_v3 import \
+        band_geometry
+    band, starts = band_geometry(HW, CELL, *BOUNDS, OH, GRID[0])
+    y = torch.arange(HW[0], device=dev)
+    lo = torch.as_tensor(starts, device=dev).repeat_interleave(GRID[1])
+    return ((y >= lo[:, None]) & (y < lo[:, None] + band)).float()
+
+
 def v3_phase(V, K, dev):
     """K3 and K4 against their plain versions at paper128 shapes, B=32 and
     B=128; returns the largest f32 absolute error of each."""
@@ -644,9 +658,12 @@ def v3_phase(V, K, dev):
                     f"0; every gradient through the gate mask == 0")
 
         with torch.no_grad():
-            check("v3", f"K3 against K1 B={b}", F32_BAR,
-                  V.composite_v3_forward(*inputs, *V3_GEOM),
-                  K.composite_forward(*inputs, HW, WIN))
+            got = V.composite_v3_forward(*inputs, *V3_GEOM)
+            want = K.composite_forward(*inputs, HW, WIN)
+            check("v3", f"K3 against K1 B={b}", F32_BAR, got, want)
+            phase("v3", f"K3 against K1 B={b}, every box in its band: equal "
+                        f"bit for bit: "
+                        f"{all(torch.equal(g, w) for g, w in zip(got, want))}")
     return max(errs3), max(errs4)
 
 
@@ -699,10 +716,7 @@ def v3_times(V, K, card, dev):
     inputs, in turns, at B=32 and B=128, with each kernel's bound. Each
     kernel is first held against its plain version on the timed inputs."""
     times = {}
-    band, starts = V.band_geometry(HW, CELL, *BOUNDS, OH, GRID[0])
-    y = torch.arange(HW[0], device=dev)
-    lo = torch.as_tensor(starts, device=dev).repeat_interleave(GRID[1])
-    band_rows = ((y >= lo[:, None]) & (y < lo[:, None] + band)).float()
+    rows = band_rows(dev)
     for b in (32, 128):
         gen = torch.Generator(device=dev).manual_seed(400 + b)
         inputs = banded_glimpses(b, gen, dev)
@@ -731,7 +745,7 @@ def v3_times(V, K, card, dev):
                                       else 20))
         t = {k: sum(v) / len(v) for k, v in got.items()}
         full = support_pairs(inputs[3])
-        clipped = support_pairs(inputs[3], band_rows)
+        clipped = support_pairs(inputs[3], rows)
         t["bound"] = {"K1": bound(b, C, 4, True, full),
                       "K3": bound(b, C, 4, True, clipped),
                       "K2": bound(b, C, 4, False, full),
@@ -836,8 +850,34 @@ def v3_path_phase(V, K, card, dev):
     phase("path", f"the path's compositor inputs: glimpses "
                   f"{inputs[0].dtype}, {int(gate.sum())} of {gate.numel()} "
                   f"objects live")
-    v3_held(V, "path", masked(inputs, gate), random_cotangents(
-        TRAIN_B, torch.Generator(device=dev).manual_seed(6), dev))
+    inputs = masked(inputs, gate)
+    cot = random_cotangents(
+        TRAIN_B, torch.Generator(device=dev).manual_seed(6), dev)
+    v3_held(V, "path", inputs, cot)
+    # their times on these inputs, kernel and plain version in turns, as
+    # phase 9 times K1 and K2 on the main path's inputs
+    fns = {"K3": lambda: V.composite_v3_forward(*inputs, *V3_GEOM),
+           "plain K3": lambda: V.composite_v3_plain(*inputs, *V3_GEOM),
+           "K4": lambda: V.composite_v3_backward(*inputs, *V3_GEOM, *cot),
+           "plain K4": lambda: V.composite_v3_backward_plain(
+               *inputs, *V3_GEOM, *cot)}
+    got = {k: [] for k in fns}
+    with torch.no_grad():
+        for k in ("plain K3", "K3", "K3", "plain K3", "plain K4", "K4", "K4",
+                  "plain K4"):
+            got[k].append(cuda_ms(fns[k], 5 if k.startswith("plain")
+                                  else 20))
+    pairs = support_pairs(inputs[3], band_rows(dev))
+    for k, fwd in (("K3", True), ("K4", False)):
+        bms, by, moved = bound(TRAIN_B, C, inputs[0].element_size(), fwd,
+                               pairs)
+        t = sum(got[k]) / 2
+        phase("path", f"{k} on the path's inputs (b{TRAIN_B}, "
+                      f"{inputs[0].dtype}, gated glimpses zeroed): "
+                      f"{', '.join(f'{x:.4f}' for x in got[k])} ms, plain "
+                      f"{', '.join(f'{x:.4f}' for x in got['plain ' + k])} "
+                      f"ms; bound {bms:.4f} ms ({by}), {bms / t:.1%} of it;"
+                      f" achieved {moved / t / 1e6:.1f} GB/s ({card})")
 
     # the same step alone, CUDA events over 2 calls of 10 after a warmup,
     # as phase 9 times the K1/K2 step
@@ -857,6 +897,14 @@ def v3_path_phase(V, K, card, dev):
     phase("path", f"pallas_v3 train step: {ms:.3f} ms/step, "
                   f"{TRAIN_B / ms * 1e3:.1f} img/s (CUDA events over 2 calls "
                   f"of {STEPS_PER_CALL} steps, cold start; {card})")
+    one = make_train_step(cfg, datagen=(data_config(cfg), bank))
+    wall, busy, n_kernels, events = profiled(lambda: one(state))
+    phase("path", f"one pallas_v3 train step under the profiler: {wall:.3f} "
+                  f"ms wall, device busy {busy:.3f} ms ({busy / ms:.1%} of "
+                  f"the unprofiled {ms:.3f} ms), {n_kernels} device kernels "
+                  f"({card})")
+    print(events.table(sort_by="self_device_time_total", row_limit=10),
+          flush=True)
     return launches[:2]
 
 
@@ -892,7 +940,7 @@ def main():
         K.load_library(name)
     phase("build", f"{', '.join(p.name for p in libs.values())} in "
                    f"{time.perf_counter() - t0:.2f} s")
-    for name in ("composite_fwd", "composite_bwd"):
+    for name in libs:
         print_ptxas(K, name)
 
     # 3. kernel against plain version
@@ -1013,24 +1061,25 @@ def main():
     # 12. the slice's path: train() through 'pallas_v3'
     v3_launches = v3_path_phase(V, K, card, dev)
 
-    # the kernels at the main paths' batch, B=128, on the same inputs
+    # the kernels at the main paths' batch, B=128, on the same inputs; K3
+    # and K4 are the same sources' kernels launched with a band
     src = "spair_pytorch_tpu_torch/csrc"
     pallas = "spair_pytorch_tpu/ops/pallas"
-    rows = (("composite_fwd", "K1", "composite.py:79", launches[0],
-             max_abs_err),
-            ("composite_bwd", "K2", "composite.py:133", launches[1],
-             bwd_abs_err),
-            ("composite_v3_fwd", "K3", "composite_v3.py:151",
+    rows = (("composite_fwd", "composite_fwd", "K1", "composite.py:79",
+             launches[0], max_abs_err),
+            ("composite_bwd", "composite_bwd", "K2", "composite.py:133",
+             launches[1], bwd_abs_err),
+            ("composite_v3_fwd", "composite_fwd", "K3", "composite_v3.py:151",
              v3_launches[0], v3_errs[0]),
-            ("composite_v3_bwd", "K4", "composite_v3.py:203",
+            ("composite_v3_bwd", "composite_bwd", "K4", "composite_v3.py:203",
              v3_launches[1], v3_errs[1]))
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": f"{src}/{name}.cu",
+        {"name": name, "route": "cuda", "source": f"{src}/{source}.cu",
          "replaces": f"{pallas}/{where}", "launches": n, "max_abs_err": err,
          "ms": same[k], "plain_ms": same[f"plain {k}"],
          "bound_ms": same["bound"][k][0], "bound_by": same["bound"][k][1],
          "library_ms": None}
-        for name, k, where, n, err in rows]}))
+        for name, source, k, where, n, err in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,10 @@
-// Presence-gated paste-and-composite, backward (Hopper, sm_90a).
+// Presence-gated paste-and-composite, backward (Hopper, sm_90a), and its
+// band-clipped form.
 //
 // Replaces spair_pytorch_tpu/ops/pallas/composite.py::_bwd_kernel /
-// _bwd_object, the VJP of the forward in composite_fwd.cu. For one object o
+// _bwd_object (K2), the VJP of the forward in composite_fwd.cu, and, with a
+// band, spair_pytorch_tpu/ops/pallas/composite_v3.py::_bwd_kernel (K4). For
+// one object o
 // of image b, with its planes pasted onto the canvas by bilinear sampling at
 //
 //   sy(y) = ((uy - (2 yt - 1)) / ys + 1) (oh - 1) / 2,  uy = 2y / (H - 1) - 1
@@ -63,6 +66,14 @@
 // and independent of which block takes which object. The box sums are
 // reduced across the block by warp shuffles and then warp by warp in order.
 // Any box works: the support is tiled in rows and columns, not assumed small.
+//
+// K4 is the same VJP with each object's canvas rows clipped to its grid
+// row's band (Bands in composite_common.cuh), py zero outside it, and no
+// gate: the object's support rows are intersected with the band once, and
+// every later step (sy, the exact row ranges, both passes, dbox) runs over
+// the clipped rows only. An all-zero (gated upstream) glimpse still gets
+// dimp = py^T dden px, as in the TPU kernel; the caller's gate mask zeroes
+// it.
 
 #include <cstdint>
 #include <mutex>
@@ -170,7 +181,7 @@ composite_bwd_kernel(const T* __restrict__ color, const T* __restrict__ alpha,
                      const float* __restrict__ dden, T* __restrict__ dg,
                      float* __restrict__ dbox, int total, int n, int c_any,
                      int oh_any, int ow_any, int ih, int iw, int tile_px,
-                     int bulk) {
+                     int bulk, const __grid_constant__ Bands bands) {
   constexpr bool kFixed = kC > 0 && kOH > 0 && kOW > 0;
   // fixed shapes: pass 2 gives each thread kPer texel positions times kNc
   // planes; pass 1 takes kBatch pixels a thread at a time
@@ -251,6 +262,11 @@ composite_bwd_kernel(const T* __restrict__ color, const T* __restrict__ alpha,
     int y0, y1, x0, x1;  // the paste support, sy in (-1, oh), sx in (-1, ow)
     canvas_range(-1.0f, (float)oh, ih, yt, ys, oh, &y0, &y1);
     canvas_range(-1.0f, (float)ow, iw, xt, xs, ow, &x0, &x1);
+    if (bands.band > 0) {  // K4: only the rows of the object's band
+      const int band0 = bands.starts[(o - b * n) / bands.gw];
+      y0 = max(y0, band0);
+      y1 = min(y1, band0 + bands.band - 1);
+    }
     for (int y = y0 + tid; y <= y1; y += kThreads)
       ssy[y] = src_coord(y, ih, yt, ys, oh);
     for (int x = x0 + tid; x <= x1; x += kThreads)
@@ -484,7 +500,8 @@ template <typename T, int kC, int kOH, int kOW>
 int launch(const void* color, const void* alpha, const void* imp,
            const void* boxes, const void* gate, const void* dnum,
            const void* dden, void* dg, void* dbox, int b, int n, int c,
-           int oh, int ow, int ih, int iw, int tile_px, cudaStream_t s) {
+           int oh, int ow, int ih, int iw, int tile_px, const Bands& bands,
+           cudaStream_t s) {
   auto kernel = composite_bwd_kernel<T, kC, kOH, kOW>;
   const int total = b * n;
   if (total == 0) return 0;
@@ -519,7 +536,8 @@ int launch(const void* color, const void* alpha, const void* imp,
       static_cast<const T*>(imp), static_cast<const float*>(boxes),
       static_cast<const float*>(gate), static_cast<const float*>(dnum),
       static_cast<const float*>(dden), static_cast<T*>(dg),
-      static_cast<float*>(dbox), total, n, c, oh, ow, ih, iw, tile_px, bulk);
+      static_cast<float*>(dbox), total, n, c, oh, ow, ih, iw, tile_px, bulk,
+      bands);
   return (int)cudaGetLastError();
 }
 
@@ -527,13 +545,15 @@ template <typename T>
 int dispatch(const void* color, const void* alpha, const void* imp,
              const void* boxes, const void* gate, const void* dnum,
              const void* dden, void* dg, void* dbox, int b, int n, int c,
-             int oh, int ow, int ih, int iw, int tile_px, cudaStream_t s) {
+             int oh, int ow, int ih, int iw, int tile_px, const Bands& bands,
+             cudaStream_t s) {
   if (c == 1 && oh == 28 && ow == 28)  // the paper128 main path
     return launch<T, 1, 28, 28>(color, alpha, imp, boxes, gate, dnum, dden,
                                 dg, dbox, b, n, c, oh, ow, ih, iw, tile_px,
-                                s);
+                                bands, s);
   return launch<T, 0, 0, 0>(color, alpha, imp, boxes, gate, dnum, dden, dg,
-                            dbox, b, n, c, oh, ow, ih, iw, tile_px, s);
+                            dbox, b, n, c, oh, ow, ih, iw, tile_px, bands,
+                            s);
 }
 
 }  // namespace
@@ -551,19 +571,26 @@ size_t spair_composite_bwd_smem(int c, int oh, int ow, int ih, int iw,
 // and imp (B, N, 1, oh, ow) and dg (B, N, C + 2, oh, ow) in f32 (is_bf16 =
 // 0) or bf16 (is_bf16 = 1); boxes (B, N, 4) f32; gate (B, N) f32 or null;
 // dnum (B, C, H, W) and dden (B, 1, H, W) f32; dbox (B, N, 4) f32. tile_px
-// is the number of support pixels one dP tile holds.
+// is the number of support pixels one dP tile holds. band > 0 clips the rows
+// of the objects of each grid row of width gw (N = gh * gw, raster order) to
+// [starts[h], starts[h] + band): `starts` is a HOST array of gh band starts
+// (copied into the launch's parameters), or null with band = 0 for no clip.
 int spair_composite_bwd(const void* color, const void* alpha, const void* imp,
                         const void* boxes, const void* gate, const void* dnum,
                         const void* dden, void* dg, void* dbox, int b, int n,
                         int c, int oh, int ow, int ih, int iw, int tile_px,
+                        const int* starts, int gh, int gw, int band,
                         int is_bf16, void* stream) {
+  Bands bands;
+  if (!make_bands(starts, gh, gw, band, &bands))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return dispatch<__nv_bfloat16>(color, alpha, imp, boxes, gate, dnum,
                                    dden, dg, dbox, b, n, c, oh, ow, ih, iw,
-                                   tile_px, s);
+                                   tile_px, bands, s);
   return dispatch<float>(color, alpha, imp, boxes, gate, dnum, dden, dg,
-                         dbox, b, n, c, oh, ow, ih, iw, tile_px, s);
+                         dbox, b, n, c, oh, ow, ih, iw, tile_px, bands, s);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 // Device helpers shared by the compositor kernels (composite_fwd.cu,
-// composite_bwd.cu, composite_v3_fwd.cu, composite_v3_bwd.cu).
+// composite_bwd.cu).
 //
 // A glimpse of oh x ow texels is pasted onto an H x W canvas by the inverse
 // spatial transform of grid_sample(align_corners=True, zeros padding): canvas
@@ -18,6 +18,30 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+// The banded compositor's row clip (K3, K4): the objects of grid row h (the
+// object o / gw of an image, objects in raster order over the grid) paste
+// only onto the canvas rows [starts[h], starts[h] + band). band == 0: no
+// clip (K1, K2). Passed by value, as a __grid_constant__ kernel parameter.
+constexpr int kMaxBandRows = 64;
+struct Bands {
+  int gw, band;
+  int starts[kMaxBandRows];
+};
+
+// Bands for the C interface: `starts` is a host array of gh band starts, or
+// null with band == 0; false when gh is out of range.
+inline bool make_bands(const int* starts, int gh, int gw, int band,
+                       Bands* out) {
+  *out = Bands{};
+  if (band <= 0) return true;
+  if (starts == nullptr || gh < 1 || gh > kMaxBandRows || gw < 1)
+    return false;
+  out->gw = gw;
+  out->band = band;
+  for (int h = 0; h < gh; ++h) out->starts[h] = starts[h];
+  return true;
+}
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {

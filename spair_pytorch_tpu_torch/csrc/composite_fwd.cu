@@ -1,6 +1,9 @@
-// Presence-gated paste-and-composite, forward (Hopper, sm_90a).
+// Presence-gated paste-and-composite, forward (Hopper, sm_90a), and its
+// band-clipped form.
 //
-// Replaces spair_pytorch_tpu/ops/pallas/composite.py::_fwd_kernel. For each
+// Replaces spair_pytorch_tpu/ops/pallas/composite.py::_fwd_kernel (K1) and,
+// with a band (kBanded), spair_pytorch_tpu/ops/pallas/composite_v3.py::
+// _fwd_kernel (K3). For each
 // image b and canvas pixel (y, x) it accumulates over the N objects
 //
 //   num[c] = sum_o alpha_o * color_o,c * (imp_o + 1e-9)
@@ -44,6 +47,14 @@
 // kernel that tests every object at every pixel, since a listed object that
 // misses a pixel adds nothing to it and the order of the sums is kept. Six
 // blocks a SM (40 registers, a few spilled) ran faster than five.
+//
+// K3 is the same function with no gate and each object's canvas rows clipped
+// to its grid row's band (Bands in composite_common.cuh; the TPU kernel's
+// clip is exact, a box past its band pastes nothing outside it). The
+// kBanded instantiation intersects each object's row range with its band
+// before the tile test, and writes an out-of-range sy (-2) for the tile rows
+// outside the band, which the per-pixel loop then skips as it skips rows off
+// the glimpse. The instantiation without a band compiles to K1 as it was.
 
 #include "composite_common.cuh"
 
@@ -61,14 +72,15 @@ constexpr float kEps = 1e-9f;
 constexpr size_t kSmemBytes = sizeof(float) * kChunk * (4 + kTileH + kTileW) +
                               sizeof(int) * (kChunk + kChunkWarps);
 
-template <typename T>
+template <typename T, bool kBanded>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 composite_fwd_kernel(const T* __restrict__ color, const T* __restrict__ alpha,
                      const T* __restrict__ imp,
                      const float* __restrict__ boxes,
                      const float* __restrict__ gate, float* __restrict__ num,
                      float* __restrict__ den, int n, int c, int oh, int ow,
-                     int ih, int iw, float den_floor) {
+                     int ih, int iw, float den_floor,
+                     const __grid_constant__ Bands bands) {
   extern __shared__ float smem[];
   float* sbox = smem;                         // (kChunk, 4): xt, yt, xs, ys
   float* ssy = sbox + 4 * kChunk;             // (kChunk, kTileH)
@@ -102,6 +114,11 @@ composite_fwd_kernel(const T* __restrict__ color, const T* __restrict__ alpha,
       int ylo, yhi, xlo, xhi;
       canvas_range(-1.0f, (float)oh, ih, box[1], box[3], oh, &ylo, &yhi);
       canvas_range(-1.0f, (float)ow, iw, box[0], box[2], ow, &xlo, &xhi);
+      if constexpr (kBanded) {
+        const int band0 = bands.starts[o / bands.gw];
+        ylo = max(ylo, band0);
+        yhi = min(yhi, band0 + bands.band - 1);
+      }
       live = max(ylo, ty0) <= min(yhi, ty0 + kTileH - 1) &&
              max(xlo, tx0) <= min(xhi, tx0 + kTileW - 1);
     }
@@ -122,11 +139,17 @@ composite_fwd_kernel(const T* __restrict__ color, const T* __restrict__ alpha,
     }
     __syncthreads();
 
-    // coordinates of the listed objects on the tile's rows and columns
+    // coordinates of the listed objects on the tile's rows and columns; a
+    // row outside the object's band gets -2, off the glimpse (the band start
+    // is read again here: kept from the cull, it spilled more)
     for (int i = tid; i < count * kTileH; i += kThreads) {
-      const int j = i / kTileH;
-      ssy[i] = src_coord(ty0 + i % kTileH, ih, sbox[4 * j + 1],
-                         sbox[4 * j + 3], oh);
+      const int j = i / kTileH, row = ty0 + i % kTileH;
+      float sy = src_coord(row, ih, sbox[4 * j + 1], sbox[4 * j + 3], oh);
+      if constexpr (kBanded) {
+        const int band0 = bands.starts[sobj[j] / bands.gw];
+        if (row < band0 || row >= band0 + bands.band) sy = -2.0f;
+      }
+      ssy[i] = sy;
     }
     for (int i = tid; i < count * kTileW; i += kThreads) {
       const int j = i / kTileW;
@@ -165,6 +188,34 @@ composite_fwd_kernel(const T* __restrict__ color, const T* __restrict__ alpha,
   if (blockIdx.z == 0) den[(size_t)b * hw + p] = dacc;
 }
 
+template <bool kBanded>
+cudaError_t launch(const void* color, const void* alpha, const void* imp,
+                   const void* boxes, const void* gate, void* num, void* den,
+                   int b, int n, int c, int oh, int ow, int ih, int iw,
+                   float den_floor, const Bands& bands, int is_bf16,
+                   cudaStream_t s) {
+  const dim3 block(kThreads);
+  const dim3 grid(((ih + kTileH - 1) / kTileH) * ((iw + kTileW - 1) / kTileW),
+                  b, (c + kChannelsPerBlock - 1) / kChannelsPerBlock);
+  const size_t smem = kSmemBytes;
+  if (is_bf16) {
+    composite_fwd_kernel<__nv_bfloat16, kBanded><<<grid, block, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(color),
+        static_cast<const __nv_bfloat16*>(alpha),
+        static_cast<const __nv_bfloat16*>(imp),
+        static_cast<const float*>(boxes), static_cast<const float*>(gate),
+        static_cast<float*>(num), static_cast<float*>(den), n, c, oh, ow, ih,
+        iw, den_floor, bands);
+  } else {
+    composite_fwd_kernel<float, kBanded><<<grid, block, smem, s>>>(
+        static_cast<const float*>(color), static_cast<const float*>(alpha),
+        static_cast<const float*>(imp), static_cast<const float*>(boxes),
+        static_cast<const float*>(gate), static_cast<float*>(num),
+        static_cast<float*>(den), n, c, oh, ow, ih, iw, den_floor, bands);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -173,32 +224,24 @@ extern "C" {
 // are device pointers to contiguous tensors: color (B, N, C, oh, ow), alpha
 // and imp (B, N, 1, oh, ow) in f32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
 // boxes (B, N, 4) f32; gate (B, N) f32 or null; num (B, C, H, W) and den
-// (B, 1, H, W) f32.
+// (B, 1, H, W) f32. band > 0 clips the rows of the objects of each grid row
+// of width gw (N = gh * gw, raster order) to [starts[h], starts[h] + band):
+// `starts` is a HOST array of gh band starts (copied into the launch's
+// parameters), or null with band = 0 for no clip.
 int spair_composite_fwd(const void* color, const void* alpha, const void* imp,
                         const void* boxes, const void* gate, void* num,
                         void* den, int b, int n, int c, int oh, int ow, int ih,
-                        int iw, float den_floor, int is_bf16, void* stream) {
-  const dim3 block(kThreads);
-  const dim3 grid(((ih + kTileH - 1) / kTileH) * ((iw + kTileW - 1) / kTileW),
-                  b, (c + kChannelsPerBlock - 1) / kChannelsPerBlock);
-  const size_t smem = kSmemBytes;
+                        int iw, float den_floor, const int* starts, int gh,
+                        int gw, int band, int is_bf16, void* stream) {
+  Bands bands;
+  if (!make_bands(starts, gh, gw, band, &bands))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    composite_fwd_kernel<__nv_bfloat16><<<grid, block, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(color),
-        static_cast<const __nv_bfloat16*>(alpha),
-        static_cast<const __nv_bfloat16*>(imp),
-        static_cast<const float*>(boxes), static_cast<const float*>(gate),
-        static_cast<float*>(num), static_cast<float*>(den), n, c, oh, ow, ih,
-        iw, den_floor);
-  } else {
-    composite_fwd_kernel<float><<<grid, block, smem, s>>>(
-        static_cast<const float*>(color), static_cast<const float*>(alpha),
-        static_cast<const float*>(imp), static_cast<const float*>(boxes),
-        static_cast<const float*>(gate), static_cast<float*>(num),
-        static_cast<float*>(den), n, c, oh, ow, ih, iw, den_floor);
-  }
-  return (int)cudaGetLastError();
+  if (band > 0)
+    return (int)launch<true>(color, alpha, imp, boxes, gate, num, den, b, n,
+                             c, oh, ow, ih, iw, den_floor, bands, is_bf16, s);
+  return (int)launch<false>(color, alpha, imp, boxes, gate, num, den, b, n, c,
+                            oh, ow, ih, iw, den_floor, bands, is_bf16, s);
 }
 
 }  // extern "C"

@@ -11,11 +11,12 @@ Pallas backward's formulas as tensor code), which are also the kernels'
 oracles. ``cull_tiles`` is the forward kernel's per-tile culling rule in
 plain PyTorch, for the tests; nothing on a path calls it.
 
-The kernels (these two and ``ops/kernels/composite_v3.py``'s) are compiled
-with ``nvcc`` at first use into ``_build/``, one library per source, named
-by the hash of the source and the shared header (so an edited source
-rebuilds), and bound with ``ctypes``. Nothing is built or loaded at import
-time.
+The same two kernels, launched with a row band, are ``ops/kernels/
+composite_v3.py``'s K3 and K4 (``_launch_forward`` / ``_launch_backward``
+take the band). They are compiled with ``nvcc`` at first use into
+``_build/``, one library per source, named by the hash of the source and
+the shared header (so an edited source rebuilds), and bound with
+``ctypes``. Nothing is built or loaded at import time.
 """
 
 from __future__ import annotations
@@ -36,18 +37,19 @@ from spair_pytorch_tpu_torch.ops.stn import _source_coords_paste, paste_weights
 _EPS = 1e-9
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("composite_fwd", "composite_bwd", "composite_v3_fwd",
-                        "composite_v3_bwd")}
+           for name in ("composite_fwd", "composite_bwd")}
 HEADERS = (_PKG / "csrc" / "composite_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# the most shared memory one block of a backward kernel (K2, K4) may take
+# the most shared memory one block of the backward kernel may take
 _BWD_SMEM_MAX = 227 * 1024
 # objects K1 culls per pass (csrc/composite_fwd.cu kChunk)
 CULL_CHUNK = 128
 # support pixels in one of K2's dP tiles, before the shared-memory budget
 BWD_TILE_PX = 2048
+# grid rows a band launch takes (csrc/composite_common.cuh kMaxBandRows)
+MAX_BAND_ROWS = 64
 
 
 def composite_plain(color, alpha, importance, boxes, image_hw,
@@ -211,7 +213,8 @@ def canvas_range(src_lo: float, src_hi: float, canvas: int, t, s,
     return lo.to(torch.int64), hi.to(torch.int64)
 
 
-def cull_tiles(boxes, image_hw, object_hw, tile=(32, 8), pres_gate=None):
+def cull_tiles(boxes, image_hw, object_hw, tile=(32, 8), pres_gate=None,
+               bands=None):
     """K1's culling rule in plain PyTorch: which objects each canvas tile
     lists. Not on any path; the tests hold it against the JAX paste
     weights.
@@ -222,13 +225,19 @@ def cull_tiles(boxes, image_hw, object_hw, tile=(32, 8), pres_gate=None):
     its gate is nonzero and its support (``canvas_range`` over the glimpse
     coordinates (-1, oh) and (-1, ow)) meets the tile. ``mask[b, i, j]
     .nonzero()`` is tile (i, j)'s list, in object order as the kernel sums
-    it."""
+    it. ``bands`` = (band, starts, gw) is K3's cull: object o's rows are
+    first clipped to [starts[o // gw], starts[o // gw] + band)."""
     ih, iw = image_hw
     oh, ow = object_hw
     th, tw = tile
     xt, yt, xs, ys = boxes.to(torch.float32).unbind(-1)
     ylo, yhi = canvas_range(-1.0, float(oh), ih, yt, ys, oh)
     xlo, xhi = canvas_range(-1.0, float(ow), iw, xt, xs, ow)
+    if bands is not None:
+        band, starts, gw = bands
+        lo = torch.as_tensor(starts, device=boxes.device).repeat_interleave(
+            gw)
+        ylo, yhi = torch.maximum(ylo, lo), torch.minimum(yhi, lo + band - 1)
 
     def meets(lo, hi, size, step):
         start = torch.arange(0, size, step, device=boxes.device)
@@ -311,17 +320,12 @@ def load_library(name: str) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {  # function: (argtypes, restype)
         "composite_fwd": {
-            "spair_composite_fwd": ([ptr] * 7 + [i32] * 7 + [f32, i32, ptr],
-                                    i32)},
+            "spair_composite_fwd": ([ptr] * 7 + [i32] * 7 + [f32, ptr]
+                                    + [i32] * 4 + [ptr], i32)},
         "composite_bwd": {
-            "spair_composite_bwd": ([ptr] * 9 + [i32] * 9 + [ptr], i32),
+            "spair_composite_bwd": ([ptr] * 9 + [i32] * 8 + [ptr]
+                                    + [i32] * 4 + [ptr], i32),
             "spair_composite_bwd_smem": ([i32] * 7, ctypes.c_size_t)},
-        "composite_v3_fwd": {
-            "spair_composite_v3_fwd": ([ptr] * 7 + [i32] * 9 + [f32, i32, ptr],
-                                       i32)},
-        "composite_v3_bwd": {
-            "spair_composite_v3_bwd": ([ptr] * 9 + [i32] * 11 + [ptr], i32),
-            "spair_composite_v3_bwd_smem": ([i32] * 6, ctypes.c_size_t)},
     }
     for fn, (argtypes, restype) in signatures[name].items():
         getattr(lib, fn).argtypes = argtypes
@@ -413,10 +417,37 @@ def composite_forward(color, alpha, importance, boxes, image_hw,
         return composite_plain(color, alpha, importance, boxes, image_hw,
                                pres_gate=pres_gate, den_floor_n=den_floor_n)
 
+    out = _launch_forward(color, alpha, importance, boxes, image_hw,
+                          pres_gate, den_floor_n, device)
+    composite_forward.launches += 1
+    return out
+
+
+composite_forward.launches = 0
+
+
+def _band_args(bands, n: int):
+    """(starts as a ctypes array or None, gh, gw, band) for the C
+    interface; ``bands`` = (band, starts, gw) or None for no clip."""
+    if bands is None:
+        return None, 0, 0, 0
+    band, starts, gw = bands
+    gh = len(starts)
+    if gh * gw != n or not 1 <= gh <= MAX_BAND_ROWS:
+        raise ValueError(f"bands of {gh} grid rows of {gw} objects for N={n}"
+                         f" (at most {MAX_BAND_ROWS} rows)")
+    return (ctypes.c_int * gh)(*starts), gh, gw, int(band)
+
+
+def _launch_forward(color, alpha, importance, boxes, image_hw, pres_gate,
+                    den_floor_n, device, bands=None):
+    """(num, den) from one launch of ``csrc/composite_fwd.cu``: K1, or K3
+    with ``bands`` = (band, starts, gw)."""
     b, n, c, oh, ow = _check_cuda_inputs(color, alpha, importance, boxes,
                                          pres_gate, image_hw)
     ih, iw = image_hw
     floor_n = n if den_floor_n is None else int(den_floor_n)
+    band_args = _band_args(bands, n)
     lib = load_library("composite_fwd")
     num = torch.empty((b, c, ih, iw), dtype=torch.float32, device=device)
     den = torch.empty((b, 1, ih, iw), dtype=torch.float32, device=device)
@@ -427,13 +458,10 @@ def composite_forward(color, alpha, importance, boxes, image_hw,
             boxes.data_ptr(),
             None if pres_gate is None else pres_gate.data_ptr(),
             num.data_ptr(), den.data_ptr(), b, n, c, oh, ow, ih, iw,
-            floor_n * _EPS, int(color.dtype == torch.bfloat16), stream)
+            floor_n * _EPS, *band_args, int(color.dtype == torch.bfloat16),
+            stream)
     _raise_on(lib, err, "composite_fwd")
-    composite_forward.launches += 1
     return num, den
-
-
-composite_forward.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -462,10 +490,24 @@ def composite_backward(color, alpha, importance, boxes, image_hw, dnum, dden,
         return composite_backward_plain(color, alpha, importance, boxes,
                                         image_hw, dnum, dden, pres_gate)
 
+    out = _launch_backward(color, alpha, importance, boxes, image_hw, dnum,
+                           dden, pres_gate, device)
+    composite_backward.launches += 1
+    return out
+
+
+composite_backward.launches = 0
+
+
+def _launch_backward(color, alpha, importance, boxes, image_hw, dnum, dden,
+                     pres_gate, device, bands=None):
+    """(dcolor, dalpha, dimp, dbox) from one launch of ``csrc/
+    composite_bwd.cu``: K2, or K4 with ``bands`` = (band, starts, gw)."""
     b, n, c, oh, ow = _check_cuda_inputs(color, alpha, importance, boxes,
                                          pres_gate, image_hw)
     ih, iw = image_hw
     _check_cotangents(dnum, dden, b, c, image_hw)
+    band_args = _band_args(bands, n)
     lib = load_library("composite_bwd")
     is_bf16 = int(color.dtype == torch.bfloat16)
     tile_px = _bwd_tile_px(c, oh, ow, ih, iw, is_bf16)
@@ -478,13 +520,9 @@ def composite_backward(color, alpha, importance, boxes, image_hw, dnum, dden,
             boxes.data_ptr(),
             None if pres_gate is None else pres_gate.data_ptr(),
             dnum.data_ptr(), dden.data_ptr(), dg.data_ptr(), dbox.data_ptr(),
-            b, n, c, oh, ow, ih, iw, tile_px, is_bf16, stream)
+            b, n, c, oh, ow, ih, iw, tile_px, *band_args, is_bf16, stream)
     _raise_on(lib, err, "composite_bwd")
-    composite_backward.launches += 1
     return dg[:, :, :c], dg[:, :, c:c + 1], dg[:, :, c + 1:], dbox
-
-
-composite_backward.launches = 0
 
 
 class CompositeFunction(torch.autograd.Function):

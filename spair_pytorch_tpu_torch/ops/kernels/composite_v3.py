@@ -12,24 +12,24 @@ boxes that is the same function as ``composite.composite``; a box past its
 band is clipped, exactly as the TPU kernel clips it.
 
 For CUDA tensors ``composite_v3_forward`` and ``composite_v3_backward``
-launch ``csrc/composite_v3_fwd.cu`` (K3) and ``csrc/composite_v3_bwd.cu``
-(K4) or raise; for CPU tensors they run ``composite_v3_plain`` and
+launch K3 and K4 or raise: ``composite.py``'s forward and backward kernels
+(``csrc/composite_fwd.cu``, ``csrc/composite_bwd.cu``) with the band, no
+gate and a den floor of N * 1e-9. K3 and K4 keep launch counters of their
+own. For CPU tensors they run ``composite_v3_plain`` and
 ``composite_v3_backward_plain``, ``composite.py``'s plain versions with each
 object's rows clipped to its band, which are also the kernels' oracles.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from spair_pytorch_tpu_torch.ops.kernels.composite import (
-    _BWD_SMEM_MAX, _EPS, _check_cotangents, _check_cuda_inputs,
-    _device_of, _raise_on, composite_backward_plain, composite_plain,
-    load_library)
+    _device_of, _launch_backward, _launch_forward, composite_backward_plain,
+    composite_plain)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -132,43 +132,21 @@ def composite_v3_forward(color, alpha, importance, boxes, image_hw,
         return composite_v3_plain(color, alpha, importance, boxes, image_hw,
                                   cell_h, grid_hw, box_bounds, chunk_k)
 
-    b, n, c, oh, ow = _check_cuda_inputs(color, alpha, importance, boxes,
-                                         None, image_hw)
-    if 16 * n > 48 * 1024:  # K3 keeps an image's boxes in shared memory
-        raise ValueError(f"N={n} objects' boxes do not fit K3's shared "
-                         f"memory")
-    gh, gw = grid_hw
-    ih, iw = image_hw
-    band, starts = _bands(n, image_hw, cell_h, grid_hw, box_bounds, oh)
-    lib = load_library("composite_v3_fwd")
-    num = torch.empty((b, c, ih, iw), dtype=torch.float32, device=device)
-    den = torch.empty((b, 1, ih, iw), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.spair_composite_v3_fwd(
-            color.data_ptr(), alpha.data_ptr(), importance.data_ptr(),
-            boxes.data_ptr(), num.data_ptr(), den.data_ptr(),
-            (ctypes.c_int * gh)(*starts), b, gh, gw, c, oh, ow, ih, iw, band,
-            n * _EPS, int(color.dtype == torch.bfloat16), stream)
-    _raise_on(lib, err, "composite_v3_fwd")
+    out = _launch_forward(color, alpha, importance, boxes, image_hw, None,
+                          None, device, _kernel_bands(color, image_hw, cell_h,
+                                                      grid_hw, box_bounds))
     composite_v3_forward.launches += 1
-    return num, den
+    return out
 
 
 composite_v3_forward.launches = 0
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_tile_rows(c: int, oh: int, ow: int, iw: int, band: int) -> int:
-    """Canvas rows per tile of K4: the most (up to 32, and the band) whose
-    shared memory fits one block."""
-    smem = load_library("composite_v3_bwd").spair_composite_v3_bwd_smem
-    for rows in range(min(32, band), 0, -1):
-        # the card's per-block limit: the band staging sets the size
-        if smem(c, oh, ow, iw, band, rows) <= _BWD_SMEM_MAX:
-            return rows
-    raise ValueError(f"a band of {band} x {iw} canvas rows and {c + 2} x "
-                     f"{oh} x {ow} glimpses do not fit K4's shared memory")
+def _kernel_bands(color, image_hw, cell_h, grid_hw, box_bounds):
+    """(band, starts, gw), the row clip as the kernels take it."""
+    band, starts = _bands(color.shape[1], image_hw, cell_h, grid_hw,
+                          box_bounds, color.shape[-2])
+    return band, starts, grid_hw[1]
 
 
 def composite_v3_backward(color, alpha, importance, boxes, image_hw,
@@ -185,27 +163,11 @@ def composite_v3_backward(color, alpha, importance, boxes, image_hw,
                                            image_hw, cell_h, grid_hw,
                                            box_bounds, dnum, dden, chunk_k)
 
-    b, n, c, oh, ow = _check_cuda_inputs(color, alpha, importance, boxes,
-                                         None, image_hw)
-    gh, gw = grid_hw
-    ih, iw = image_hw
-    _check_cotangents(dnum, dden, b, c, image_hw)
-    band, starts = _bands(n, image_hw, cell_h, grid_hw, box_bounds, oh)
-    lib = load_library("composite_v3_bwd")
-    tile_rows = _bwd_tile_rows(c, oh, ow, iw, band)
-    dg = torch.empty((b, n, c + 2, oh, ow), dtype=color.dtype, device=device)
-    dbox = torch.empty((b, n, 4), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.spair_composite_v3_bwd(
-            color.data_ptr(), alpha.data_ptr(), importance.data_ptr(),
-            boxes.data_ptr(), dnum.data_ptr(), dden.data_ptr(),
-            dg.data_ptr(), dbox.data_ptr(), (ctypes.c_int * gh)(*starts), b,
-            gh, gw, c, oh, ow, ih, iw, band, tile_rows,
-            int(color.dtype == torch.bfloat16), stream)
-    _raise_on(lib, err, "composite_v3_bwd")
+    out = _launch_backward(color, alpha, importance, boxes, image_hw, dnum,
+                           dden, None, device, _kernel_bands(
+                               color, image_hw, cell_h, grid_hw, box_bounds))
     composite_v3_backward.launches += 1
-    return dg[:, :, :c], dg[:, :, c:c + 1], dg[:, :, c + 1:], dbox
+    return out
 
 
 composite_v3_backward.launches = 0

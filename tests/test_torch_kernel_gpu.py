@@ -368,3 +368,122 @@ def test_v3_function_matches_k1_path_and_autograd(cuda):
 
     assert rel(grads(V.composite_v3), grads(V.composite_v3_plain)) \
         < GRAD_BARS["float32"]
+
+
+# ------------------------------------- K3 / K4 edge cases: the band launches
+
+# (canvas, cell height, grid, box bounds): paper128's geometry, bands of 88
+# of 128 rows (K4 through K2's fixed C = 1, 28 x 28 instantiation); a 4 x 40
+# grid, N = 160 objects, past K1's cull chunk, bands of 64 rows; a 256 x 256
+# canvas with bands of 144-152 rows
+P128 = ((128, 128), 12, (11, 11), (-0.5, 1.5, 0.375))
+WIDE40 = ((128, 128), 32, (4, 40), (0.0, 1.0, 0.1))
+BIG = ((256, 256), 64, (4, 4), (0.0, 1.0, 0.25))
+
+
+def v3_case(seed, b, c, g, geom, dev, past_band=True):
+    """Glimpses (C channels, g x g) and boxes from the model's
+    parameterization for ``geom``; with ``past_band`` every fifth object
+    sits near the far edge of the canvas from its grid row, past its
+    band."""
+    hw, cell, (gh, gw), (min_cy, max_cy, max_ys) = geom
+    rng = np.random.RandomState(seed)
+    n = gh * gw
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype("f")
+    glimpses = [torch.as_tensor(a, device=dev) for a in (
+        u(b, n, c, g, g), u(b, n, 1, g, g), u(b, n, 1, g, g, lo=0.01))]
+    hh, ww = np.meshgrid(np.arange(gh), np.arange(gw), indexing="ij")
+    yt = (hh.ravel() + u(b, n, lo=min_cy, hi=max_cy)) * cell / hw[0]
+    xt = (ww.ravel() + u(b, n, lo=min_cy, hi=max_cy)) / gw
+    if past_band:
+        yt[:, ::5] = np.where(hh.ravel()[::5] < gh / 2, 0.9, 0.1)
+    boxes = np.stack([xt, yt, u(b, n, lo=0.05, hi=max_ys),
+                      u(b, n, lo=0.05, hi=max_ys)], -1).astype("f")
+    return glimpses, torch.as_tensor(boxes, device=dev)
+
+
+def v3_held(glimpses, boxes, geom, dev, dtype="float32", seed=0):
+    """K3 and K4 on the glimpses in ``dtype`` against their plain versions
+    on the f32 glimpses, each output on its own scale; one launch of each."""
+    dnum, dden = cotangents(seed, boxes.shape[0], glimpses[0].shape[2],
+                            geom[0], dev)
+    low = [g.to(getattr(torch, dtype)) for g in glimpses]
+    f0, b0 = V.composite_v3_forward.launches, V.composite_v3_backward.launches
+    with torch.no_grad():
+        fwd = V.composite_v3_forward(*low, boxes, *geom)
+        bwd = V.composite_v3_backward(*low, boxes, *geom, dnum, dden)
+        torch.cuda.synchronize()
+        want_f = V.composite_v3_plain(*glimpses, boxes, *geom)
+        want_b = V.composite_v3_backward_plain(*glimpses, boxes, *geom, dnum,
+                                               dden)
+    assert (V.composite_v3_forward.launches,
+            V.composite_v3_backward.launches) == (f0 + 1, b0 + 1)
+    for g, w in zip(fwd, want_f):
+        assert rel((g,), (w,)) < BARS[dtype]
+    for g, w in zip(bwd, want_b):
+        assert g.shape == w.shape
+        assert rel((g.float(),), (w,)) < GRAD_BARS[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(BARS))
+def test_v3_paper128_shapes(cuda, dtype):
+    """C = 1, 28 x 28 glimpses on paper128's bands: K4 through K2's
+    compile-time instantiation and its bulk-copy stages."""
+    glimpses, boxes = v3_case(40, 4, 1, 28, P128, cuda)
+    v3_held(glimpses, boxes, P128, cuda, dtype)
+
+
+@pytest.mark.gpu
+def test_v3_objects_past_the_cull_chunk(cuda):
+    """N = 160: K3 culls in chunks of K.CULL_CHUNK and keeps object order."""
+    glimpses, boxes = v3_case(41, 2, 1, 28, WIDE40, cuda)
+    v3_held(glimpses, boxes, WIDE40, cuda)
+
+
+@pytest.mark.gpu
+def test_v3_unaligned_glimpse_planes(cuda):
+    """17 x 17 f32 planes, 1156 bytes, not a multiple of 16: K4 copies the
+    planes itself instead of with the bulk copy."""
+    geom = ((48, 48), 12, (4, 4), (0.0, 1.0, 0.25))
+    glimpses, boxes = v3_case(42, 3, 1, 17, geom, cuda)
+    v3_held(glimpses, boxes, geom, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c, g", [(1, 28), (3, 14)])
+def test_v3_band_past_a_block_of_shared_memory(cuda, c, g):
+    """Bands of 144-152 of 256 rows, whose dnum and dden (C + 1 planes of
+    band x 256 floats) would not fit the 227 KB of shared memory one block
+    may use; C = 3, 14 x 14 takes the generic instantiation."""
+    hw, cell, grid, bounds = BIG
+    band, _ = V.band_geometry(hw, cell, *bounds, g, grid[0])
+    assert band < hw[0] and 4 * (c + 1) * band * hw[1] > 227 * 1024
+    glimpses, boxes = v3_case(43 + c, 2, c, g, BIG, cuda)
+    v3_held(glimpses, boxes, BIG, cuda)
+
+
+@pytest.mark.gpu
+def test_v3_two_launches_agree_bit_for_bit(cuda):
+    glimpses, boxes = v3_case(44, 8, 1, 28, P128, cuda)
+    dnum, dden = cotangents(44, 8, 1, P128[0], cuda)
+    runs = [(*V.composite_v3_forward(*glimpses, boxes, *P128),
+             *V.composite_v3_backward(*glimpses, boxes, *P128, dnum, dden))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_v3_forward_equals_k1_for_boxes_in_their_bands(cuda):
+    """Boxes inside their bands lose nothing to the clip: K3 lists the same
+    objects in the same order wherever they paste, so its num and den equal
+    K1's bit for bit."""
+    glimpses, boxes = v3_case(45, 4, 1, 28, P128, cuda, past_band=False)
+    with torch.no_grad():
+        got = V.composite_v3_forward(*glimpses, boxes, *P128)
+        want = K.composite_forward(*glimpses, boxes, P128[0])
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""K1 and K2 (the compositor's forward and backward kernels) on one CUDA
-card: held against their plain versions, timed beside their bound, and,
-with ``--parent DIR`` (repeatable), timed in turns against the K1/K2 of
-other checkouts of the repository (an unpacked ``git archive``, or a copy
-with an edited kernel) on the same inputs: each other checkout, this one
-twice, then the others again in reverse order.
+"""The compositor kernels K1-K4 on one CUDA card: held against their plain
+versions, timed beside their bound, and, with ``--parent DIR``
+(repeatable), timed in turns against the kernels of other checkouts of the
+repository (an unpacked ``git archive``, or a copy with an edited kernel)
+on the same inputs: each other checkout, this one twice, then the others
+again in reverse order. Each kernel's outputs are also compared with each
+other checkout's: each output's max |this - other| / max |other| and
+whether all are equal bit for bit.
 
 Inputs are chip_smoke.py's: paper128 shapes (N=121, C=1, 28x28 glimpses,
 128x128 canvas), f32, ungated, at B=32 and B=128, with boxes as phase 11
 draws them (the model's parameterization) and as phase 6 draws them
-(uniform centres). ``--sweep`` also times K2's dP tile sizes on the B=128
-phase-11 inputs.
+(uniform centres). K3 and K4 take paper128's bands. ``--sweep`` also
+times K2's dP tile sizes on the B=128 phase-11 inputs.
 
     python tools/kernel_ab.py [--parent chip_checkout/PARENT ...] [--sweep]
 """
@@ -29,23 +31,40 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as S  # noqa: E402
 from spair_pytorch_tpu_torch.ops.kernels import composite as K  # noqa: E402
+from spair_pytorch_tpu_torch.ops.kernels import composite_v3 as V  # noqa: E402
+
+KERNEL_MODULE = "spair_pytorch_tpu_torch.ops.kernels.composite"
 
 
-def load_checkout(root: Path):
-    """Another checkout's ops/kernels/composite.py, as a module of its own:
-    its kernels build from its csrc/ into its _build/."""
-    path = root / "spair_pytorch_tpu_torch" / "ops" / "kernels" / \
-        "composite.py"
-    spec = importlib.util.spec_from_file_location(
-        f"composite_of_{root.name}", path)
+def load_module(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
 
 
-def fns(M, inputs, cot):
+def load_checkout(root: Path):
+    """Another checkout's ops/kernels/composite.py and composite_v3.py, as
+    modules of their own: its kernels build from its csrc/ into its _build/,
+    and its composite_v3 imports its own composite."""
+    base = root / "spair_pytorch_tpu_torch" / "ops" / "kernels"
+    theirs = load_module(f"composite_of_{root.name}", base / "composite.py")
+    mine = sys.modules[KERNEL_MODULE]
+    sys.modules[KERNEL_MODULE] = theirs
+    try:
+        theirs_v3 = load_module(f"composite_v3_of_{root.name}",
+                                base / "composite_v3.py")
+    finally:
+        sys.modules[KERNEL_MODULE] = mine
+    return theirs, theirs_v3
+
+
+def fns(M, M3, inputs, cot):
     return {"K1": lambda: M.composite_forward(*inputs, S.HW, S.WIN),
-            "K2": lambda: M.composite_backward(*inputs, S.HW, *cot)}
+            "K2": lambda: M.composite_backward(*inputs, S.HW, *cot),
+            "K3": lambda: M3.composite_v3_forward(*inputs, *S.V3_GEOM),
+            "K4": lambda: M3.composite_v3_backward(*inputs, *S.V3_GEOM,
+                                                   *cot)}
 
 
 def main():
@@ -62,16 +81,17 @@ def main():
     print(card, flush=True)
 
     K.build_library()
-    for name in ("composite_fwd", "composite_bwd"):
+    for name in K.SOURCES:
         K.load_library(name)
         S.print_ptxas(K, name)
     others = {root.name: load_checkout(root) for root in args.parent}
-    for label, M in others.items():
+    for label, (M, _) in others.items():
         M.build_library()
         if hasattr(M, "ptxas_report"):
-            for name in ("composite_fwd", "composite_bwd"):
+            for name in M.SOURCES:
                 S.print_ptxas(M, name, label)
 
+    band_rows = S.band_rows(dev)
     for draw in ("phase 11", "phase 6"):
         for b in (32, 128):
             gen = torch.Generator(device=dev).manual_seed(400 + b)
@@ -79,16 +99,24 @@ def main():
                       else S.random_glimpses(b, S.N, gen, dev))
             cot = S.random_cotangents(b, gen, dev)
             S.held_at(K, inputs, S.random_gate(b, gen, dev), cot)
-            mine = fns(K, inputs, cot)
-            theirs = {name: fns(M, inputs, cot) for name, M in others.items()}
-            pairs = S.support_pairs(inputs[3])
+            S.v3_held(V, "ab", inputs, cot)
+            mine = fns(K, V, inputs, cot)
+            theirs = {name: fns(*Ms, inputs, cot)
+                      for name, Ms in others.items()}
+            full = S.support_pairs(inputs[3])
+            clipped = S.support_pairs(inputs[3], band_rows)
             with torch.no_grad():
-                for k in ("K1", "K2"):
-                    bar = S.F32_BAR if k == "K1" else S.GRAD_BAR
+                for k in ("K1", "K2", "K3", "K4"):
+                    bar = S.F32_BAR if k in ("K1", "K3") else S.GRAD_BAR
                     names = list(theirs)
                     for name in names:
-                        S.check("ab", f"{k} B={b} against {name}", bar,
-                                mine[k](), theirs[name][k]())
+                        got, want = mine[k](), theirs[name][k]()
+                        S.check("ab", f"{draw} {k} B={b} against {name}",
+                                bar, got, want)
+                        same = all(torch.equal(g, w)
+                                   for g, w in zip(got, want))
+                        print(f"[ab] {draw} {k} B={b} against {name}: "
+                              f"equal bit for bit: {same}", flush=True)
                     order = names + ["this", "this"] + names[::-1]
                     t = {name: [] for name in order}
                     for name in order:
@@ -97,7 +125,9 @@ def main():
                     new = t["this"]
                     old = "".join(f"; {name} {t[name][0]:.4f}, "
                                   f"{t[name][1]:.4f} ms" for name in names)
-                    ms, by, moved = S.bound(b, S.C, 4, k == "K1", pairs)
+                    ms, by, moved = S.bound(
+                        b, S.C, 4, k in ("K1", "K3"),
+                        clipped if k in ("K3", "K4") else full)
                     mean = sum(new) / len(new)
                     print(f"[ab] {draw} {k} B={b}: "
                           f"{', '.join(f'{x:.4f}' for x in new)} ms{old}; "
@@ -114,7 +144,7 @@ def main():
             for K.BWD_TILE_PX in (256, 512, 1024, 2048):
                 K._bwd_tile_px.cache_clear()
                 S.held_at(K, inputs, S.random_gate(128, gen, dev), cot)
-                ms = S.cuda_ms(fns(K, inputs, cot)["K2"], 20)
+                ms = S.cuda_ms(fns(K, V, inputs, cot)["K2"], 20)
                 print(f"[sweep] K2 B=128 dP tile {K.BWD_TILE_PX} px: "
                       f"{ms:.4f} ms ({card})", flush=True)
             K.BWD_TILE_PX = px
