@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (spair_pytorch_tpu_torch).
 
-Drives the port's serving path, its training step and its training entry
-point through the banded compositor ('pallas_v3') at paper128 width on one
-CUDA card, with random weights from the preset's seed:
+Drives the port's serving path, its training step, its training entry
+point through the banded compositor ('pallas_v3') at paper128 width, and
+the model options of three more presets, on one CUDA card, with random
+weights from the preset's seed:
 
   1. device     the card's name and power limit (nvidia-smi);
   2. build      compiles csrc/composite_fwd.cu (K1, and K3 as its banded
@@ -61,7 +62,22 @@ CUDA card, with random weights from the preset's seed:
                 eval keys, K3/K4 against their plain versions on the path's
                 own compositor inputs and their times there beside their
                 plain versions and bounds; then the same step timed alone,
-                and one step's device time under the profiler.
+                and one step's device time under the profiler;
+ 13. options    the model options of cluttered_fine, quality and
+                tpu_throughput: (a) K3 and K4 on a 576x64 canvas of 72
+                grid rows, past the 64 whose band starts travel in the
+                launch's parameters, against their plain versions at 1e-6
+                and K3 against K1; (b) reference-mode top-K through K1/K2
+                at cluttered_fine width (16x16 grid, K=32, gate 0.01, B=32),
+                sparse and dense, against the full gated grid, with the N
+                of every launch; (c) train() of the three presets for 10
+                steps each at their widths and batches from random
+                weights: losses, ms/step, K1/K2 launches, top-K and
+                fallback steps; (d) one train step with the conv codec and
+                one with the vestigial self-attention (its loss equal to
+                the loss without it bit for bit); (e) the sequential and
+                the parallel count prior, and the ordered compositor's full
+                scan and top-32, timed in turns.
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
 cuDNN convs in full f32), so kernels and plain versions are compared on the
@@ -908,6 +924,294 @@ def v3_path_phase(V, K, card, dev):
     return launches[:2]
 
 
+# phase 13: the model options. A tall, narrow canvas of 72 grid rows of
+# 8-px cells, past the 64 rows whose band starts travel in the launch's
+# parameters; cluttered_fine's 16x16 grid with top-K 32 and the 0.01 gate
+OPT_BAR = 1e-6    # f32 K3/K4 on the tall grid, each output on its own scale
+TALL = ((576, 64), 8, (72, 8), (-0.5, 1.5, 0.06))
+FINE_B, TOPK = 32, 32
+
+
+class LaunchSizes:
+    """While active, records the object count N of every K1/K2 launch and
+    of every ordered composite, without counting a launch: wraps
+    ``composite.py``'s ``_launch_forward`` / ``_launch_backward`` and
+    ``render.py``'s ``composite_ordered``."""
+
+    def __init__(self, K, R):
+        self.targets = [(K, "_launch_forward", "K1"),
+                        (K, "_launch_backward", "K2"),
+                        (R, "composite_ordered", "ordered")]
+        self.sizes = {label: [] for _, _, label in self.targets}
+
+    def __enter__(self):
+        self.saved = []
+        for module, name, label in self.targets:
+            fn = getattr(module, name)
+            self.saved.append((module, name, fn))
+
+            def wrap(*args, _fn=fn, _label=label, **kw):
+                self.sizes[_label].append(int(args[0].shape[1]))
+                return _fn(*args, **kw)
+            setattr(module, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def tall_glimpses(b, gen, dev):
+    """14x14 glimpses on TALL's grid, boxes from the model's
+    parameterization (inside their bands)."""
+    (ih, iw), cell, (gh, gw), (lo, hi, max_ys) = TALL
+    n = gh * gw
+
+    def u(*shape, a=0.0, z=1.0):
+        return torch.rand(shape, generator=gen, device=dev) * (z - a) + a
+    h = torch.arange(gh, device=dev).repeat_interleave(gw)
+    w = torch.arange(gw, device=dev).repeat(gh)
+    boxes = torch.stack([(w + u(b, n, a=lo, z=hi)) / gw,
+                         (h + u(b, n, a=lo, z=hi)) * cell / ih,
+                         u(b, n, a=0.02, z=max_ys), u(b, n, a=0.02, z=max_ys)],
+                        dim=-1)
+    return (u(b, n, 1, 14, 14), u(b, n, 1, 14, 14),
+            u(b, n, 1, 14, 14, a=0.01), boxes.contiguous())
+
+
+def fine_latents(cfg, b, live, gen, dev):
+    """Latent grids (B, gh, gw, ·) on cfg's grid for render: boxes near
+    their cells, presence 0.9 on ``live`` random cells of each image and
+    0.001 on the rest, which the 0.01 gate drops."""
+    from spair_pytorch_tpu_torch.models.latents import geometry
+    _, (gh, gw), _ = geometry(cfg)
+    n = gh * gw
+    pick = torch.rand((b, n), generator=gen, device=dev).argsort(dim=1)
+    pres = torch.full((b, n), 0.001, device=dev)
+    pres.scatter_(1, pick[:, :live], 0.9)
+    h = torch.arange(gh, device=dev).repeat_interleave(gw)
+    w = torch.arange(gw, device=dev).repeat(gh)
+
+    def u(*shape, a=0.0, z=1.0):
+        return torch.rand(shape, generator=gen, device=dev) * (z - a) + a
+    where = torch.stack([(w + u(b, n, a=-0.5, z=1.5)) / gw,
+                         (h + u(b, n, a=-0.5, z=1.5)) / gh,
+                         u(b, n, a=0.05, z=0.375), u(b, n, a=0.05, z=0.375)],
+                        dim=-1)
+    zs = (torch.randn((b, n, cfg.n_attributes), generator=gen, device=dev),
+          where, u(b, n, 1, a=0.5, z=3.5), pres[..., None])
+    return [z.reshape(b, gh, gw, -1).contiguous() for z in zs]
+
+
+def render_grads(model, cfg, zs):
+    """(recon, d/dz_attr, d/dz_where) of sum(recon^2), the JAX package's
+    top-K test's objective."""
+    from spair_pytorch_tpu_torch.models.render import render
+    a, w = (z.clone().requires_grad_(True) for z in zs[:2])
+    out = render(model, cfg, a, w, zs[2], zs[3], cfg.image_shape[1:])
+    torch.sum(out ** 2).backward()
+    return out.detach(), a.grad, w.grad
+
+
+def options_phase(K, V, card, dev):
+    """Phase 13: the model options that cluttered_fine, quality and
+    tpu_throughput need, on the card. Returns nothing; raises on failure."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.models import init_params
+    from spair_pytorch_tpu_torch.models import render as R
+    from spair_pytorch_tpu_torch.models.kl import (count_prior_kl,
+                                                   count_prior_kl_parallel)
+    from spair_pytorch_tpu_torch.models.latents import geometry, sample_noise
+    from spair_pytorch_tpu_torch.parallel import create_train_state
+    from spair_pytorch_tpu_torch.parallel.train_step import train_step
+    from spair_pytorch_tpu_torch.train import train
+    t_phase = time.perf_counter()
+
+    # (a) K3/K4 past 64 grid rows: band starts in device memory
+    gen = torch.Generator(device=dev).manual_seed(1300)
+    inputs = tall_glimpses(4, gen, dev)
+    dnum, dden = (torch.rand((4, c, *TALL[0]), generator=gen, device=dev)
+                  for c in (1, 1))
+    band, starts = V.band_geometry(TALL[0], TALL[1], *TALL[3], 14,
+                                   TALL[2][0])
+    with torch.no_grad():
+        check("options", f"K3 gh={TALL[2][0]} (band {band} of "
+                         f"{TALL[0][0]} rows, {len(set(starts.tolist()))} "
+                         f"starts)", OPT_BAR,
+              V.composite_v3_forward(*inputs, *TALL),
+              V.composite_v3_plain(*inputs, *TALL))
+        check("options", f"K4 gh={TALL[2][0]}", OPT_BAR,
+              V.composite_v3_backward(*inputs, *TALL, dnum, dden),
+              V.composite_v3_backward_plain(*inputs, *TALL, dnum, dden))
+        got = V.composite_v3_forward(*inputs, *TALL)
+        want = K.composite_forward(*inputs, TALL[0])
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+    phase("options", f"K3 against K1 at gh={TALL[2][0]}, every box in its "
+                     f"band: equal bit for bit: {same}")
+    if not same:
+        raise AssertionError("K3 past 64 rows differs from K1 in its bands")
+
+    # (b) reference-mode top-K through K1/K2 at cluttered_fine width
+    fine = PRESETS["cluttered_fine"](batch_size=FINE_B)
+    full = dataclasses.replace(fine, render_topk=0)
+    model = init_params(fine, device=dev)
+    n_fine = geometry(fine)[1][0] * geometry(fine)[1][1]
+    for live in (20, n_fine):
+        zs = fine_latents(fine, FINE_B, live, gen, dev)
+        want = render_grads(model, full, zs)
+        f0, b0 = K.composite_forward.launches, K.composite_backward.launches
+        with LaunchSizes(K, R) as rec:
+            got = render_grads(model, fine, zs)
+            torch.cuda.synchronize()
+        launches = (K.composite_forward.launches - f0,
+                    K.composite_backward.launches - b0)
+        branch = "top-K" if live <= TOPK else "fallback"
+        expect_n = TOPK if live <= TOPK else n_fine
+        phase("options", f"cluttered_fine render B={FINE_B}, {live} live of "
+                         f"{n_fine} an image: {branch} branch; launches K1 "
+                         f"{launches[0]}, K2 {launches[1]}, N {rec.sizes}")
+        if launches != (1, 1) or rec.sizes["K1"] != [expect_n] or \
+                rec.sizes["K2"] != [expect_n]:
+            raise AssertionError(f"top-K took the wrong branch: {rec.sizes}")
+        errs = [float((got[0] - want[0]).abs().max())]
+        for g, w, name in zip(got[1:], want[1:], ("z_attr", "z_where")):
+            excess = ((g - w).abs() - (1e-5 + 5e-4 * w.abs())).max()
+            errs.append(float((g - w).abs().max()))
+            if float(excess) > 0:
+                raise AssertionError(f"top-K gradient against {name} is off")
+        phase("options", f"  against the full gated grid: recon max abs "
+                         f"{errs[0]:.3e} (bar 1e-6 + 1e-6 rel), d z_attr "
+                         f"{errs[1]:.3e}, d z_where {errs[2]:.3e} (rtol "
+                         f"5e-4, atol 1e-5)")
+        if errs[0] > 1e-6 + 1e-6 * float(want[0].abs().max()):
+            raise AssertionError("top-K recon differs from the full grid")
+
+    # (c) train() of the three presets at their widths and batches
+    import tempfile
+    for name, b in (("cluttered_fine", 32), ("quality", 32),
+                    ("tpu_throughput", 256)):
+        cfg = PRESETS[name]()
+        if cfg.batch_size != b:
+            raise AssertionError(f"{name}'s batch is {cfg.batch_size}")
+        steps = 10
+        with tempfile.TemporaryDirectory() as logdir:
+            K.composite_forward.launches = K.composite_backward.launches = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with LaunchSizes(K, R) as rec:
+                start.record()
+                train(cfg, steps=steps, logdir=logdir, checkpoint_every=0,
+                      metrics_every=1, steps_per_call=steps, digits="font",
+                      verbose=False, device=dev)
+                end.record()
+                torch.cuda.synchronize()
+            launches = (K.composite_forward.launches,
+                        K.composite_backward.launches)
+            with open(f"{logdir}/metrics.jsonl") as f:
+                rows = [json.loads(line) for line in f]
+        losses = [r["losses/total"] for r in rows if "losses/total" in r]
+        ms = start.elapsed_time(end) / steps
+        sizes = rec.sizes["ordered"] if cfg.render_mode == "ordered" \
+            else rec.sizes["K1"]
+        topk_steps = sum(1 for x in sizes if x == cfg.render_topk)
+        branches = (f"; top-K branch {topk_steps} steps, fallback "
+                    f"{len(sizes) - topk_steps}" if cfg.render_topk else "")
+        phase("options", f"train() {name} b{b} {cfg.inference_mode} "
+                         f"{cfg.compute_dtype} {cfg.render_mode}: {steps} "
+                         f"steps from random weights, losses "
+                         f"{losses[0]:.1f} -> {losses[-1]:.1f}, all finite: "
+                         f"{all(math.isfinite(v) for v in losses)}; "
+                         f"{ms:.3f} ms/step, {b / ms * 1e3:.1f} img/s (CUDA "
+                         f"events around train(), set-up and first step "
+                         f"included; {card}); launches K1 {launches[0]}, K2 "
+                         f"{launches[1]}; composites on N = "
+                         f"{sorted(set(sizes))}{branches}")
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: losses {losses}")
+        if cfg.render_mode == "reference" and min(launches) < steps:
+            raise AssertionError(f"{name} did not launch K1/K2 every step")
+
+    # (d) one train step with the conv codec and with the self-attention
+    base = PRESETS["paper128"]()
+    x = torch.rand((B,) + base.image_shape, generator=gen, device=dev)
+    noise = sample_noise(torch.Generator(device=dev).manual_seed(13), B,
+                         geometry(base)[1], base)
+    conv = dataclasses.replace(base, object_codec="conv")
+    state = create_train_state(conv, device=dev)
+    before = [p.detach().clone() for p in state.model.object_decoder
+              .parameters()]
+    out = train_step(conv, state, x, noise=noise)
+    moved = all(not torch.equal(p, q) for p, q in zip(
+        state.model.object_decoder.parameters(), before))
+    phase("options", f"conv codec train step, paper128 f32 b{B}: loss "
+                     f"{float(out['losses/total']):.3f}, finite; encoder "
+                     f"grad norm {float(out['grad_norm/object_encoder']):.3e}"
+                     f", decoder {float(out['grad_norm/object_decoder']):.3e}"
+                     f", every decoder tensor updated: {moved}")
+    if not (math.isfinite(float(out["losses/total"])) and moved
+            and float(out["grad_norm/object_encoder"]) > 0):
+        raise AssertionError("the conv codec step is off")
+    attn = dataclasses.replace(base, vestigial_self_attn=True)
+    state = create_train_state(attn, device=dev)
+    plain = create_train_state(base, device=dev)
+    plain.model.load_state_dict({k: v for k, v in
+                                 state.model.state_dict().items()
+                                 if not k.startswith("self_attn.")})
+    out_attn = train_step(attn, state, x, noise=noise)
+    out_plain = train_step(base, plain, x, noise=noise)
+    equal = torch.equal(out_attn["losses/total"], out_plain["losses/total"])
+    phase("options", f"self-attention train step, paper128 f32 b{B}: loss "
+                     f"{float(out_attn['losses/total']):.6f}, without it "
+                     f"{float(out_plain['losses/total']):.6f}, equal bit for"
+                     f" bit: {equal}; its mean "
+                     f"{float(out_attn['debug/self_attn_mean']):.4e}, its "
+                     f"grad norm {float(out_attn['grad_norm/self_attn'])}")
+    if not equal or float(out_attn["grad_norm/self_attn"]) != 0.0:
+        raise AssertionError("the self-attention changed the loss or has a "
+                             "gradient")
+
+    # (e) times, both arms in one call
+    for b, cfg in ((32, base), (256, base), (32, fine)):
+        gh = geometry(cfg)[1][0]
+        prob = torch.rand((b, gh, gh, 1), generator=gen, device=dev) * 0.98 \
+            + 0.01
+
+        def arm(fn):
+            def run():
+                p = prob.clone().requires_grad_(True)
+                torch.sum(fn(p, p, 1500, cfg)).backward()
+            return run
+        seq, par = arm(count_prior_kl), arm(count_prior_kl_parallel)
+        t = [cuda_ms(f, 3) for f in (seq, par, par, seq)]
+        with torch.no_grad():
+            a = count_prior_kl(prob, prob, 1500, cfg)
+            c = count_prior_kl_parallel(prob, prob, 1500, cfg)
+        err = float((a - c).abs().max() / a.abs().max())
+        phase("options", f"count prior fwd+bwd b{b} {gh}x{gh}: sequential "
+                         f"{t[0]:.3f}, {t[3]:.3f} ms; parallel {t[1]:.3f}, "
+                         f"{t[2]:.3f} ms; agreement max |seq - par| / max "
+                         f"|seq| {err:.3e} ({card})")
+        if not err < 1e-3:
+            raise AssertionError("the two count priors disagree")
+    quality = PRESETS["quality"]()
+    model = init_params(quality, device=dev)
+    zs = fine_latents(quality, FINE_B, 20, gen, dev)
+    scan = dataclasses.replace(quality, render_topk=0)
+    t = [cuda_ms(lambda c=c: render_grads(model, c, zs), 3)
+         for c in (scan, quality, quality, scan)]
+    got, want = render_grads(model, quality, zs), render_grads(model, scan, zs)
+    err = float((got[0] - want[0]).abs().max())
+    phase("options", f"ordered compositor fwd+bwd, quality b{FINE_B}, 20 "
+                     f"live of {n_fine}: full scan {t[0]:.3f}, {t[3]:.3f} "
+                     f"ms; top-{TOPK} {t[1]:.3f}, {t[2]:.3f} ms "
+                     f"({(t[0] + t[3]) / (t[1] + t[2]):.2f}x); recon max abs "
+                     f"diff {err:.3e} ({card})")
+    if err > 1e-6:
+        raise AssertionError("ordered top-K differs from the full scan")
+    phase("options", f"phase 13 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is visible")
@@ -1060,6 +1364,9 @@ def main():
 
     # 12. the slice's path: train() through 'pallas_v3'
     v3_launches = v3_path_phase(V, K, card, dev)
+
+    # 13. the model options of cluttered_fine, quality and tpu_throughput
+    options_phase(K, V, card, dev)
 
     # the kernels at the main paths' batch, B=128, on the same inputs; K3
     # and K4 are the same sources' kernels launched with a band

@@ -263,7 +263,9 @@ composite_bwd_kernel(const T* __restrict__ color, const T* __restrict__ alpha,
     canvas_range(-1.0f, (float)oh, ih, yt, ys, oh, &y0, &y1);
     canvas_range(-1.0f, (float)ow, iw, xt, xs, ow, &x0, &x1);
     if (bands.band > 0) {  // K4: only the rows of the object's band
-      const int band0 = bands.starts[(o - b * n) / bands.gw];
+      const int h = (o - b * n) / bands.gw;
+      const int band0 = bands.far != nullptr ? band_start<true>(bands, h)
+                                             : band_start<false>(bands, h);
       y0 = max(y0, band0);
       y1 = min(y1, band0 + bands.band - 1);
     }
@@ -574,15 +576,17 @@ size_t spair_composite_bwd_smem(int c, int oh, int ow, int ih, int iw,
 // is the number of support pixels one dP tile holds. band > 0 clips the rows
 // of the objects of each grid row of width gw (N = gh * gw, raster order) to
 // [starts[h], starts[h] + band): `starts` is a HOST array of gh band starts
-// (copied into the launch's parameters), or null with band = 0 for no clip.
+// (copied into the launch's parameters) for gh <= 64, `starts_dev` a DEVICE
+// array of them for a taller grid (read by the kernel), the other null; both
+// null with band = 0 for no clip.
 int spair_composite_bwd(const void* color, const void* alpha, const void* imp,
                         const void* boxes, const void* gate, const void* dnum,
                         const void* dden, void* dg, void* dbox, int b, int n,
                         int c, int oh, int ow, int ih, int iw, int tile_px,
-                        const int* starts, int gh, int gw, int band,
-                        int is_bf16, void* stream) {
+                        const int* starts, const int* starts_dev, int gh,
+                        int gw, int band, int is_bf16, void* stream) {
   Bands bands;
-  if (!make_bands(starts, gh, gw, band, &bands))
+  if (!make_bands(starts, starts_dev, gh, gw, band, &bands))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)

@@ -22,25 +22,41 @@ namespace {
 // The banded compositor's row clip (K3, K4): the objects of grid row h (the
 // object o / gw of an image, objects in raster order over the grid) paste
 // only onto the canvas rows [starts[h], starts[h] + band). band == 0: no
-// clip (K1, K2). Passed by value, as a __grid_constant__ kernel parameter.
+// clip (K1, K2). Passed by value, as a __grid_constant__ kernel parameter:
+// a grid of up to kMaxBandRows rows carries its starts in `starts`, a taller
+// one in device memory (`far`, gh ints), and `far` is null otherwise.
 constexpr int kMaxBandRows = 64;
 struct Bands {
   int gw, band;
   int starts[kMaxBandRows];
+  const int* far;
 };
 
-// Bands for the C interface: `starts` is a host array of gh band starts, or
-// null with band == 0; false when gh is out of range.
-inline bool make_bands(const int* starts, int gh, int gw, int band,
-                       Bands* out) {
+// Bands for the C interface: `starts` is a host array of gh band starts for
+// gh <= kMaxBandRows, `starts_dev` a device array of them for a taller grid;
+// both may be null with band == 0. False when an array is missing.
+inline bool make_bands(const int* starts, const int* starts_dev, int gh,
+                       int gw, int band, Bands* out) {
   *out = Bands{};
   if (band <= 0) return true;
-  if (starts == nullptr || gh < 1 || gh > kMaxBandRows || gw < 1)
-    return false;
+  if (gh < 1 || gw < 1) return false;
   out->gw = gw;
   out->band = band;
+  if (gh > kMaxBandRows) {
+    out->far = starts_dev;
+    return starts_dev != nullptr;
+  }
+  if (starts == nullptr) return false;
   for (int h = 0; h < gh; ++h) out->starts[h] = starts[h];
   return true;
+}
+
+// The band start of grid row h, from the parameter or, with kFar, from
+// device memory.
+template <bool kFar>
+__device__ __forceinline__ int band_start(const Bands& bands, int h) {
+  if constexpr (kFar) return __ldg(bands.far + h);
+  return bands.starts[h];
 }
 
 __device__ __forceinline__ float widen(float v) { return v; }

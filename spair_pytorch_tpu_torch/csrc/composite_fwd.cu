@@ -2,7 +2,7 @@
 // band-clipped form.
 //
 // Replaces spair_pytorch_tpu/ops/pallas/composite.py::_fwd_kernel (K1) and,
-// with a band (kBanded), spair_pytorch_tpu/ops/pallas/composite_v3.py::
+// with a band (kBand), spair_pytorch_tpu/ops/pallas/composite_v3.py::
 // _fwd_kernel (K3). For each
 // image b and canvas pixel (y, x) it accumulates over the N objects
 //
@@ -51,10 +51,13 @@
 // K3 is the same function with no gate and each object's canvas rows clipped
 // to its grid row's band (Bands in composite_common.cuh; the TPU kernel's
 // clip is exact, a box past its band pastes nothing outside it). The
-// kBanded instantiation intersects each object's row range with its band
-// before the tile test, and writes an out-of-range sy (-2) for the tile rows
+// banded instantiations intersect each object's row range with its band
+// before the tile test, and write an out-of-range sy (-2) for the tile rows
 // outside the band, which the per-pixel loop then skips as it skips rows off
 // the glimpse. The instantiation without a band compiles to K1 as it was.
+// A grid of more than kMaxBandRows rows reads its band starts from device
+// memory (kBand == kBandFar); up to that, from the kernel parameter, as the
+// register budget above was measured with.
 
 #include "composite_common.cuh"
 
@@ -67,12 +70,14 @@ constexpr int kChannelsPerBlock = 4;
 constexpr int kChunk = 128;  // objects culled per pass, one per thread
 constexpr int kChunkWarps = kChunk / 32;
 constexpr float kEps = 1e-9f;
+// the row clip: none (K1), band starts in the parameter or in device memory
+constexpr int kBandNone = 0, kBandParam = 1, kBandFar = 2;
 
 // listed boxes, sy and sx per listed object, object ids, warp counts
 constexpr size_t kSmemBytes = sizeof(float) * kChunk * (4 + kTileH + kTileW) +
                               sizeof(int) * (kChunk + kChunkWarps);
 
-template <typename T, bool kBanded>
+template <typename T, int kBand>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 composite_fwd_kernel(const T* __restrict__ color, const T* __restrict__ alpha,
                      const T* __restrict__ imp,
@@ -114,8 +119,8 @@ composite_fwd_kernel(const T* __restrict__ color, const T* __restrict__ alpha,
       int ylo, yhi, xlo, xhi;
       canvas_range(-1.0f, (float)oh, ih, box[1], box[3], oh, &ylo, &yhi);
       canvas_range(-1.0f, (float)ow, iw, box[0], box[2], ow, &xlo, &xhi);
-      if constexpr (kBanded) {
-        const int band0 = bands.starts[o / bands.gw];
+      if constexpr (kBand != kBandNone) {
+        const int band0 = band_start<kBand == kBandFar>(bands, o / bands.gw);
         ylo = max(ylo, band0);
         yhi = min(yhi, band0 + bands.band - 1);
       }
@@ -145,8 +150,9 @@ composite_fwd_kernel(const T* __restrict__ color, const T* __restrict__ alpha,
     for (int i = tid; i < count * kTileH; i += kThreads) {
       const int j = i / kTileH, row = ty0 + i % kTileH;
       float sy = src_coord(row, ih, sbox[4 * j + 1], sbox[4 * j + 3], oh);
-      if constexpr (kBanded) {
-        const int band0 = bands.starts[sobj[j] / bands.gw];
+      if constexpr (kBand != kBandNone) {
+        const int band0 =
+            band_start<kBand == kBandFar>(bands, sobj[j] / bands.gw);
         if (row < band0 || row >= band0 + bands.band) sy = -2.0f;
       }
       ssy[i] = sy;
@@ -188,7 +194,7 @@ composite_fwd_kernel(const T* __restrict__ color, const T* __restrict__ alpha,
   if (blockIdx.z == 0) den[(size_t)b * hw + p] = dacc;
 }
 
-template <bool kBanded>
+template <int kBand>
 cudaError_t launch(const void* color, const void* alpha, const void* imp,
                    const void* boxes, const void* gate, void* num, void* den,
                    int b, int n, int c, int oh, int ow, int ih, int iw,
@@ -199,7 +205,7 @@ cudaError_t launch(const void* color, const void* alpha, const void* imp,
                   b, (c + kChannelsPerBlock - 1) / kChannelsPerBlock);
   const size_t smem = kSmemBytes;
   if (is_bf16) {
-    composite_fwd_kernel<__nv_bfloat16, kBanded><<<grid, block, smem, s>>>(
+    composite_fwd_kernel<__nv_bfloat16, kBand><<<grid, block, smem, s>>>(
         static_cast<const __nv_bfloat16*>(color),
         static_cast<const __nv_bfloat16*>(alpha),
         static_cast<const __nv_bfloat16*>(imp),
@@ -207,7 +213,7 @@ cudaError_t launch(const void* color, const void* alpha, const void* imp,
         static_cast<float*>(num), static_cast<float*>(den), n, c, oh, ow, ih,
         iw, den_floor, bands);
   } else {
-    composite_fwd_kernel<float, kBanded><<<grid, block, smem, s>>>(
+    composite_fwd_kernel<float, kBand><<<grid, block, smem, s>>>(
         static_cast<const float*>(color), static_cast<const float*>(alpha),
         static_cast<const float*>(imp), static_cast<const float*>(boxes),
         static_cast<const float*>(gate), static_cast<float*>(num),
@@ -227,21 +233,30 @@ extern "C" {
 // (B, 1, H, W) f32. band > 0 clips the rows of the objects of each grid row
 // of width gw (N = gh * gw, raster order) to [starts[h], starts[h] + band):
 // `starts` is a HOST array of gh band starts (copied into the launch's
-// parameters), or null with band = 0 for no clip.
+// parameters) for gh <= 64, `starts_dev` a DEVICE array of them for a taller
+// grid (read by the kernel), the other null; both null with band = 0 for no
+// clip.
 int spair_composite_fwd(const void* color, const void* alpha, const void* imp,
                         const void* boxes, const void* gate, void* num,
                         void* den, int b, int n, int c, int oh, int ow, int ih,
-                        int iw, float den_floor, const int* starts, int gh,
-                        int gw, int band, int is_bf16, void* stream) {
+                        int iw, float den_floor, const int* starts,
+                        const int* starts_dev, int gh, int gw, int band,
+                        int is_bf16, void* stream) {
   Bands bands;
-  if (!make_bands(starts, gh, gw, band, &bands))
+  if (!make_bands(starts, starts_dev, gh, gw, band, &bands))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (band > 0 && bands.far != nullptr)
+    return (int)launch<kBandFar>(color, alpha, imp, boxes, gate, num, den, b,
+                                 n, c, oh, ow, ih, iw, den_floor, bands,
+                                 is_bf16, s);
   if (band > 0)
-    return (int)launch<true>(color, alpha, imp, boxes, gate, num, den, b, n,
-                             c, oh, ow, ih, iw, den_floor, bands, is_bf16, s);
-  return (int)launch<false>(color, alpha, imp, boxes, gate, num, den, b, n, c,
-                            oh, ow, ih, iw, den_floor, bands, is_bf16, s);
+    return (int)launch<kBandParam>(color, alpha, imp, boxes, gate, num, den,
+                                   b, n, c, oh, ow, ih, iw, den_floor, bands,
+                                   is_bf16, s);
+  return (int)launch<kBandNone>(color, alpha, imp, boxes, gate, num, den, b,
+                                n, c, oh, ow, ih, iw, den_floor, bands,
+                                is_bf16, s);
 }
 
 }  // extern "C"

@@ -1,11 +1,13 @@
 """KL terms (counterpart of ``spair_pytorch_tpu/models/kl.py``): the
-independent Gaussian latents and the sequential count-prior chain."""
+independent Gaussian latents and the count prior, as the sequential chain
+or in its parallel (telescoped) form."""
 
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from spair_pytorch_tpu_torch.config import SpairConfig
 from spair_pytorch_tpu_torch.ops.math import bernoulli_kl, gaussian_kl
@@ -59,5 +61,53 @@ def count_prior_kl(z_pres_prob, z_pres, step, cfg: SpairConfig):
             count_dist = new_dist / normalizer
             count_so_far = count_so_far + sample
         p_z = torch.stack(p_zs, dim=1)                      # (B, HW)
+    kls = bernoulli_kl(z_pres_prob.reshape(b, hw), p_z)
+    return kls.reshape(b, gh, gw, 1)
+
+
+def count_prior_kl_parallel(z_pres_prob, z_pres, step, cfg: SpairConfig):
+    """The count-prior KL of ``count_prior_kl`` without the sequential
+    chain. (B, gh, gw, 1) -> (B, gh, gw, 1).
+
+    The chain's count updates use the rounded samples, known up front, so
+    the count distribution telescopes: cd_i is proportional to cd_0 times
+    the exclusive cumulative product M_i of the per-cell factors, and
+    p_z_i = sum_k cd_0[k] M_i[k] p_i[k] / sum_k cd_0[k] M_i[k], computed in
+    log space with a per-cell max shift over one (B, HW, HW + 1) block. It
+    equals the chain wherever the chain's 1e-6 normalizer clamp does not
+    bind; where it binds, this is the exact telescoped value.
+
+    Kept from the JAX package: log cd_0[k] = k log sigmoid(log_odds)
+    (cd_0 itself underflows f32), taken with ``logsigmoid``, which is exact
+    where ``softplus`` turns into the identity above its threshold; the
+    clip of each factor to [0, 1] and the -1e30 floor on its log, so a
+    zero factor adds no -inf to the cumulative sums. p_z is computed under
+    no_grad, the counterpart of JAX's stop_gradient: it has no parameter
+    gradient, and the log(0) intermediates would give 0 * inf = NaN in a
+    naive backward. Gradients reach the KL through z_pres_prob only."""
+    b, gh, gw, _ = z_pres_prob.shape
+    hw = gh * gw
+    device = z_pres_prob.device
+    f32 = torch.float32
+    with torch.no_grad():
+        support = torch.arange(hw + 1, dtype=f32, device=device)
+        log_odds = exponential_decay(step, cfg.count_prior, device)
+        log_cd0 = support * F.logsigmoid(log_odds)
+        samples = torch.round(z_pres.reshape(b, hw))
+        csf = torch.cumsum(samples, dim=1) - samples  # exclusive prefix
+        rem = (hw - torch.arange(hw, dtype=f32, device=device))[None, :, None]
+        p = torch.minimum(torch.clamp(support - csf[..., None], min=0.0),
+                          rem) / rem                        # (B, HW, HW+1)
+        s = samples[..., None]
+        mult = torch.clamp(s * p + (1.0 - s) * (1.0 - p), 0.0, 1.0)
+        log_mult = torch.clamp(torch.log(mult), min=-1e30)
+        l_incl = torch.cumsum(log_mult, dim=1)
+        l_excl = torch.cat([torch.zeros((b, 1, hw + 1), dtype=f32,
+                                        device=device), l_incl[:, :-1]],
+                           dim=1)
+        logits = log_cd0 + l_excl
+        w = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+        p_z = torch.clamp(torch.sum(w * p, dim=-1) / torch.sum(w, dim=-1),
+                          0.0, 1.0)
     kls = bernoulli_kl(z_pres_prob.reshape(b, hw), p_z)
     return kls.reshape(b, gh, gw, 1)

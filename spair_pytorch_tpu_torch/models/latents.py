@@ -16,6 +16,7 @@ from torch import nn
 from spair_pytorch_tpu_torch.config import SpairConfig
 from spair_pytorch_tpu_torch.ops.backbone import (Backbone, grid_geometry,
                                                   reset_fan_in_)
+from spair_pytorch_tpu_torch.ops.convcodec import ConvDecoder, ConvEncoder
 from spair_pytorch_tpu_torch.ops.math import (clamped_sigmoid,
                                               latent_to_mean_std)
 from spair_pytorch_tpu_torch.ops.mlp import MLP
@@ -27,17 +28,28 @@ def geometry(cfg: SpairConfig):
     return grid_geometry(cfg.image_shape[1:], cfg.backbone_topology)
 
 
+class SelfAttention(nn.Module):
+    """The reference's discarded SAGAN block: per-cell linear ``query``,
+    ``key`` (d -> d // 8) and ``value`` (d -> d) maps and a ``gamma`` that
+    its forward never applies."""
+
+    def __init__(self, d: int):
+        super().__init__()
+        self.query = MLP(d, (), (d // 8,))
+        self.key = MLP(d, (), (d // 8,))
+        self.value = MLP(d, (), (d,))
+        self.gamma = nn.Parameter(torch.zeros(1))
+
+
 class SpairModel(nn.Module):
     """Every network of the model, named after the reference state_dict:
     ``backbone``, ``box_network``, ``object_encoder``, ``z_network``,
-    ``obj_network``, ``object_decoder`` and ``virtual_edge_element``."""
+    ``obj_network``, ``object_decoder`` and ``virtual_edge_element``; with
+    ``vestigial_self_attn`` also ``self_attn``. With ``object_codec='conv'``
+    the encoder and decoder are ``ops/convcodec.py``'s."""
 
     def __init__(self, cfg: SpairConfig):
         super().__init__()
-        if cfg.object_codec != "mlp":
-            raise NotImplementedError("the port has only the 'mlp' codec")
-        if cfg.vestigial_self_attn:
-            raise NotImplementedError("vestigial_self_attn is not ported")
         c, oh, ow = cfg.n_channels, cfg.object_shape[0], cfg.object_shape[1]
         n_feat, n_pass = cfg.n_backbone_features, cfg.n_passthrough_features
         ctx, a = cfg.context_dim, cfg.n_attributes
@@ -47,13 +59,23 @@ class SpairModel(nn.Module):
         # the box head widens to 8 per slot: slot-specific head weights
         self.box_network = MLP(n_feat + ctx, cfg.mlp_hidden,
                                (8 * cfg.n_object_slots, n_pass))
-        self.object_encoder = MLP(c * oh * ow, cfg.encoder_hidden, (2 * a,))
+        if cfg.object_codec == "conv":
+            self.object_encoder = ConvEncoder(c, 2 * a, (oh, ow))
+        else:
+            self.object_encoder = MLP(c * oh * ow, cfg.encoder_hidden,
+                                      (2 * a,))
         self.z_network = MLP(z_in, cfg.mlp_hidden, (2, n_pass))
         self.obj_network = MLP(z_in + 1, cfg.mlp_hidden, (1,))
-        self.object_decoder = MLP(a, cfg.decoder_hidden,
-                                  (oh * ow * (c + 1),))
+        if cfg.object_codec == "conv":
+            self.object_decoder = ConvDecoder(a, c + 1, (oh, ow))
+        else:
+            self.object_decoder = MLP(a, cfg.decoder_hidden,
+                                      (oh * ow * (c + 1),))
         self.virtual_edge_element = nn.Parameter(
             torch.zeros(cfg.context_elem_dim))
+        if cfg.vestigial_self_attn:
+            # over the 4 + A + 1 (box, attr, depth) dims of a cell's context
+            self.self_attn = SelfAttention(4 + a + 1)
 
 
 def init_params(cfg: SpairConfig, generator: torch.Generator = None,
@@ -95,16 +117,32 @@ def noise_shapes(batch: int, grid_hw: Tuple[int, int], cfg: SpairConfig):
 
 
 def sample_noise(generator: torch.Generator, batch: int,
-                 grid_hw: Tuple[int, int], cfg: SpairConfig, device="cpu"):
+                 grid_hw: Tuple[int, int], cfg: SpairConfig, device=None):
     """Every stochastic draw of one forward pass: standard normals for the
     box, attr and depth latents and logistic noise log(u + 1e-9) -
-    log(1 - u + 1e-9) for presence. ``generator`` must live on ``device``."""
+    log(1 - u + 1e-9) for presence, on ``device`` (by default the
+    generator's, where it must live)."""
+    if device is None:
+        device = generator.device
     shapes = noise_shapes(batch, grid_hw, cfg)
     out = {name: torch.randn(shapes[name], generator=generator, device=device)
            for name in ("box", "attr", "depth")}
     u = torch.rand(shapes["pres_noise"], generator=generator, device=device)
     out["pres_noise"] = torch.log(u + 1e-9) - torch.log(1.0 - u + 1e-9)
     return out
+
+
+def apply_self_attn(params: SelfAttention, ctx):
+    """The reference's Self_Attn over the grid of (box, attr, depth) cell
+    vectors, which it computes every forward and discards: ctx (B, N, d)
+    -> softmax(q k^T) v, (B, N, d). 1x1 convs over the grid are per-cell
+    linears here; gamma and the residual are not applied, as in the
+    reference's forward."""
+    q = params.query(ctx)[0]                            # (B, N, d // 8)
+    k = params.key(ctx)[0]                              # (B, N, d // 8)
+    v = params.value(ctx)[0]                            # (B, N, d)
+    attn = torch.softmax(torch.einsum("bid,bjd->bij", q, k), dim=-1)
+    return torch.einsum("bij,bjd->bid", attn, v)
 
 
 def freeze_learning(v, tw):
@@ -169,8 +207,11 @@ def cell_step(params: SpairModel, cfg: SpairConfig, geom, image, feat_cells,
     # --- z_what ---
     glimpses = crop_glimpses(image, z_where.reshape(b, k * s, 4),
                              cfg.object_shape, dtype)      # (B, K*S, C, oh, ow)
-    attr_latent = params.object_encoder(glimpses.reshape(b, k * s, -1),
-                                        dtype=dtype)[0]
+    if cfg.object_codec == "conv":
+        attr_latent = params.object_encoder(glimpses, dtype=dtype)
+    else:
+        attr_latent = params.object_encoder(glimpses.reshape(b, k * s, -1),
+                                            dtype=dtype)[0]
     attr_mean, attr_std = latent_to_mean_std(attr_latent.reshape(b, k, s, -1))
     attr = attr_mean + attr_std * per_slot(noise["attr"])
 

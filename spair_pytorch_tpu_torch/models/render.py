@@ -1,14 +1,26 @@
 """Object decoder and compositing renderer (counterpart of
-``spair_pytorch_tpu/models/render.py``, reference compositing mode).
+``spair_pytorch_tpu/models/render.py``).
 
-The composite is the reference's importance-normalized blend, out =
-num / den clipped to [0, 1], with num and den from
+``render_mode='reference'`` is the reference's importance-normalized blend,
+out = num / den clipped to [0, 1], with num and den from
 ``ops/kernels/composite.py``: ``composite``, the autograd Function over the
 CUDA forward and backward kernels K1 and K2 (``render_backend`` 'pallas' or
 'auto'; on CPU tensors their plain versions), or the plain chunked
 compositor under autograd ('xla'); or, for 'pallas_v3', from
 ``ops/kernels/composite_v3.py::composite_v3``, the band-clipped kernels K3
 and K4, which compute the same function for the model's boxes.
+``render_mode='ordered'`` is true depth-ordered alpha-over compositing
+(``composite_ordered``), plain PyTorch on every backend.
+
+With the presence gate on, ``render_topk`` = K composites only the K
+objects of highest presence when no image has more than K live objects,
+which is exact, and the full grid otherwise: in ordered mode on every
+backend, in reference mode on the kernel backends ('pallas', 'auto'),
+where K1 and K2 then run on B x K objects; 'xla' and 'pallas_v3' ignore
+it, as in the JAX package. The JAX package branches on the device
+(``lax.cond``); here the host reads the largest live count, one device sync
+per render call, which a CUDA-graph capture of the step will have to take
+into account.
 """
 
 from __future__ import annotations
@@ -22,21 +34,31 @@ from spair_pytorch_tpu_torch.ops.kernels.composite import (composite,
                                                            composite_plain)
 from spair_pytorch_tpu_torch.ops.kernels.composite_v3 import composite_v3
 from spair_pytorch_tpu_torch.ops.math import clamped_sigmoid
+from spair_pytorch_tpu_torch.ops.stn import paste_weights
+
+_TOPK_NEEDS_GATE = (
+    "render_topk requires pres_gate_threshold > 0: without the gate, "
+    "dropped objects have small-but-nonzero alpha and top-K selection would "
+    "change the composite")
 
 
 def decode_objects(params, cfg: SpairConfig, z_attr, z_pres, z_depth,
                    dtype=None):
     """z_attr (B, N, A) -> (color, alpha, importance), each (B, N, ·, oh, ow).
 
-    The decoder MLP computes in ``dtype`` and returns float32 logits. They
-    are scaled (color x obj_logit_scale, alpha x alpha_logit_scale +
-    alpha_logit_bias) and squashed with the analytical sigmoid; alpha is
-    gated by z_pres and importance = clamp(alpha * depth, min=0.01)."""
+    The decoder (the MLP, or the conv decoder with ``object_codec='conv'``)
+    computes in ``dtype`` and returns float32 logits. They are scaled
+    (color x obj_logit_scale, alpha x alpha_logit_scale + alpha_logit_bias)
+    and squashed with the analytical sigmoid; alpha is gated by z_pres and
+    importance = clamp(alpha * depth, min=0.01)."""
     c = cfg.n_channels
     oh, ow = cfg.object_shape
-    logits = params.object_decoder(z_attr, dtype=dtype)[0]
-    b, n = logits.shape[:2]
-    logits = logits.reshape(b, n, oh, ow, c + 1)
+    if cfg.object_codec == "conv":
+        logits = params.object_decoder(z_attr, dtype=dtype)
+    else:
+        logits = params.object_decoder(z_attr, dtype=dtype)[0]
+        b, n = logits.shape[:2]
+        logits = logits.reshape(b, n, oh, ow, c + 1)
     color_logits = logits[..., :c] * cfg.obj_logit_scale
     alpha_logits = (logits[..., c:] * cfg.alpha_logit_scale
                     + cfg.alpha_logit_bias)
@@ -47,6 +69,79 @@ def decode_objects(params, cfg: SpairConfig, z_attr, z_pres, z_depth,
     # to the channel-first glimpse layout (B, N, C, oh, ow)
     return tuple(torch.movedim(t, -1, 2).contiguous()
                  for t in (color, alpha, importance))
+
+
+def composite_ordered(color, alpha, z_depth_flat, z_where, image_hw,
+                      chunk: int):
+    """Depth-ordered alpha-over compositing: (B, C, H, W), un-clipped.
+
+    color (B, N, C, oh, ow), alpha (B, N, 1, oh, ow), z_depth_flat
+    (B, N, 1), z_where (B, N, 4). Objects are sorted front to back by
+    z_depth (higher is nearer; a stable sort, so equal depths keep their
+    object order) and composited with the over operator under a running
+    per-pixel transmittance:
+
+        out = sum_o T_o a_o c_o,   T_o = prod_{o' nearer} (1 - a_o'),
+
+    with each pasted alpha a_o clipped to [0, 1]. Objects are pasted
+    ``chunk`` at a time and composited one by one within a chunk; the last
+    chunk is padded with zero glimpses on the safe box [0.5, 0.5, 1, 1] (a
+    zero scale would divide 0 by 0), which are identities of the over
+    operator."""
+    b, n, c = color.shape[:3]
+    oh, ow = color.shape[-2:]
+    h, w = image_hw
+    order = torch.argsort(-z_depth_flat[..., 0], dim=1, stable=True)
+
+    def take(t):
+        return torch.take_along_dim(
+            t, order.reshape((b, n) + (1,) * (t.ndim - 2)), dim=1)
+
+    color, alpha, z_where = take(color), take(alpha), take(z_where)
+    chunk = min(chunk, n)
+    pad = (-n) % chunk
+    if pad:
+        def padn(t):
+            return torch.cat([t, t.new_zeros((b, pad) + t.shape[2:])], dim=1)
+        color, alpha = padn(color), padn(alpha)
+        safe = torch.tensor([0.5, 0.5, 1.0, 1.0], dtype=z_where.dtype,
+                            device=z_where.device).expand(b, pad, 4)
+        z_where = torch.cat([z_where, safe], dim=1)
+    img = torch.zeros((b, c, h, w), dtype=color.dtype, device=color.device)
+    trans = torch.ones((b, 1, h, w), dtype=color.dtype, device=color.device)
+    for start in range(0, n + pad, chunk):
+        sl = slice(start, start + chunk)
+        py, px = paste_weights(z_where[:, sl], (oh, ow), (h, w))
+        glimpse = torch.cat([color[:, sl], alpha[:, sl]], dim=2)
+        tmp = torch.einsum("bnhy,bncyx->bnchx", py, glimpse)
+        pasted = torch.einsum("bnchx,bnwx->bnchw", tmp, px)
+        for k in range(pasted.shape[1]):
+            a_k = torch.clamp(pasted[:, k, c:], 0.0, 1.0)
+            img = img + trans * a_k * pasted[:, k, :c]
+            trans = trans * (1.0 - a_k)
+    return img
+
+
+def _top_k(scores, k: int):
+    """A gather of the K objects of highest score, in descending order of
+    score, as ``jax.lax.top_k`` returns them: take(t) maps (B, N, ...) to
+    (B, K, ...)."""
+    b = scores.shape[0]
+    idx = torch.topk(scores, k, dim=1, sorted=True).indices      # (B, K)
+
+    def take(t):
+        return torch.take_along_dim(
+            t, idx.reshape((b, k) + (1,) * (t.ndim - 2)), dim=1)
+    return take
+
+
+def _live_at_most(gate, k: int) -> bool:
+    """Whether no image has more than ``k`` live objects. The live objects
+    are counted in int32, exact for any grid (the compute dtype's integers
+    are exact only so far: bf16 to 256); reading the count is one host
+    sync."""
+    live = torch.sum((gate > 0).to(torch.int32), dim=1)
+    return int(torch.max(live)) <= k
 
 
 def paste_window_rows(cfg: SpairConfig, image_hw):
@@ -71,12 +166,8 @@ def render(params, cfg: SpairConfig, z_attr, z_where, z_depth, z_pres,
     ``pres_gate_threshold`` > 0, objects whose z_pres is not above it are
     left out of the composite (den keeps their 1e-9 floor) and get no
     reconstruction gradient: K1 and K2 skip them; the plain compositor and
-    'pallas_v3' mask their glimpses, as the JAX package does."""
-    if cfg.render_mode != "reference":
-        raise NotImplementedError(
-            f"render_mode {cfg.render_mode!r} is not ported yet")
-    if cfg.render_topk > 0:
-        raise NotImplementedError("render_topk is not ported yet")
+    'pallas_v3' mask their glimpses, as the JAX package does; ordered mode
+    zeroes their alpha. ``render_topk`` as the module docstring says."""
     b, gh, gw = z_attr.shape[:3]
     n = gh * gw
 
@@ -90,11 +181,42 @@ def render(params, cfg: SpairConfig, z_attr, z_where, z_depth, z_pres,
     if cfg.pres_gate_threshold > 0.0:
         gate = (flat(z_pres)[..., 0] > cfg.pres_gate_threshold).to(
             torch.float32).contiguous()                     # (B, N)
+    topk = 0 < cfg.render_topk < n
+
+    if cfg.render_mode == "ordered":
+        if gate is not None:
+            alpha = alpha * gate[:, :, None, None, None]
+        args = (color, alpha, flat(z_depth), boxes)
+        if topk:
+            if gate is None:
+                raise ValueError(_TOPK_NEEDS_GATE)
+            # gated objects have alpha exactly 0, identities of the over
+            # operator: the K objects of highest presence hold every live
+            # one when no image has more than K, and the result is exact,
+            # values and gradients; otherwise the full scan runs
+            if _live_at_most(gate, cfg.render_topk):
+                take = _top_k(flat(z_pres)[..., 0], cfg.render_topk)
+                args = tuple(map(take, args))
+        out = composite_ordered(*args, image_hw, cfg.render_chunk)
+        return torch.clamp(out, 0.0, 1.0)
 
     backend = cfg.render_backend
     if backend in ("pallas", "auto"):
-        num, den = composite(color, alpha, importance, boxes, image_hw,
-                             paste_window_rows(cfg, image_hw), pres_gate=gate)
+        win = paste_window_rows(cfg, image_hw)
+        if topk and gate is None:
+            raise ValueError(_TOPK_NEEDS_GATE)
+        if topk and _live_at_most(gate, cfg.render_topk):
+            # the gathered K objects hold every live one; K1/K2 run on
+            # B x K objects, gate-skip the dead among them, and den keeps
+            # the floor of all n objects; the objects left out get exact
+            # zero gradients through the gather, as the gate gave them
+            take = _top_k(flat(z_pres)[..., 0], cfg.render_topk)
+            num, den = composite(take(color), take(alpha), take(importance),
+                                 take(boxes), image_hw, win,
+                                 pres_gate=take(gate), den_floor_n=n)
+        else:
+            num, den = composite(color, alpha, importance, boxes, image_hw,
+                                 win, pres_gate=gate)
     elif backend == "xla":
         num, den = composite_plain(color, alpha, importance, boxes, image_hw,
                                    cfg.render_chunk, pres_gate=gate)

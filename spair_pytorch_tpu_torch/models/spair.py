@@ -28,8 +28,11 @@ import numpy as np
 import torch
 
 from spair_pytorch_tpu_torch.config import SpairConfig
-from spair_pytorch_tpu_torch.models.kl import count_prior_kl, independent_kl
-from spair_pytorch_tpu_torch.models.latents import (cell_step, geometry,
+from spair_pytorch_tpu_torch.models.kl import (count_prior_kl,
+                                               count_prior_kl_parallel,
+                                               independent_kl)
+from spair_pytorch_tpu_torch.models.latents import (apply_self_attn,
+                                                    cell_step, geometry,
                                                     init_params, sample_noise)
 from spair_pytorch_tpu_torch.models.render import render
 from spair_pytorch_tpu_torch.ops.math import binary_cross_entropy_sum, safe_log
@@ -213,15 +216,15 @@ def forward(params, cfg: SpairConfig, x, step, generator=None, noise=None):
     draws this pass's noise unless ``noise`` is given. Returns (loss, aux)
     with the reconstruction, the latent grids in NCHW, the training-wheel
     value and every logged loss term."""
-    if cfg.count_prior_parallel:
-        raise NotImplementedError("count_prior_parallel is not ported yet")
     z = infer_latents(params, cfg, x, step, generator, noise)
     z_where, z_attr = z["z_where"], z["z_attr"]
     z_depth, z_pres = z["z_depth"], z["z_pres"]
     z_pres_prob, tw = z["z_pres_prob"], z["training_wheel"]
 
     kls = independent_kl(z["posterior"], z_pres, cfg)
-    kls["pres_dist"] = count_prior_kl(z_pres_prob, z_pres, step, cfg)
+    count_kl = (count_prior_kl_parallel if cfg.count_prior_parallel
+                else count_prior_kl)
+    kls["pres_dist"] = count_kl(z_pres_prob, z_pres, step, cfg)
     recon = render(params, cfg, z_attr, z_where, z_depth, z_pres,
                    cfg.image_shape[1:], compute_dtype(cfg)).to(torch.float32)
     loss, terms = loss_and_metrics(x, recon, kls, cfg)
@@ -234,6 +237,16 @@ def forward(params, cfg: SpairConfig, x, step, generator=None, noise=None):
         loss = loss + cfg.pres_entropy_weight * (1.0 - tw) * ent_mean
         terms["losses/pres_entropy"] = ent_mean
         terms["losses/total"] = loss
+
+    if cfg.vestigial_self_attn and hasattr(params, "self_attn"):
+        # the reference computes its Self_Attn every forward and discards
+        # it: the block runs on the detached (box, attr, depth) context
+        # grid, and only its mean is surfaced, as a debug term outside the
+        # loss, so it has no gradient path
+        ctx = z["context_vec"][..., :-1].detach()  # drop z_pres
+        attn_out = apply_self_attn(params.self_attn,
+                                   ctx.reshape(x.shape[0], -1, ctx.shape[-1]))
+        terms["debug/self_attn_mean"] = torch.mean(attn_out)
 
     def nchw(t):
         return t.permute(0, 3, 1, 2)

@@ -28,11 +28,14 @@ def uniform_fan_in_(tensor, fan_in: int, generator: torch.Generator):
 
 
 def reset_fan_in_(module: nn.Module, generator: torch.Generator):
-    """Re-draw every Linear/Conv2d weight and bias in ``module`` (in
-    registration order) with the fan-in uniform init."""
+    """Re-draw every Linear/Conv2d/ConvTranspose2d weight and bias in
+    ``module`` (in registration order) with the fan-in uniform init; a
+    transposed conv's fan-in is its input channels times its kernel area,
+    as the JAX package counts it."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            fan_in = (m.weight[:, 0] if isinstance(m, nn.ConvTranspose2d)
+                      else m.weight[0]).numel()
             uniform_fan_in_(m.weight, fan_in, generator)
             uniform_fan_in_(m.bias, fan_in, generator)
 

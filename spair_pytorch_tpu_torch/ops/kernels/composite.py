@@ -48,8 +48,10 @@ _BWD_SMEM_MAX = 227 * 1024
 CULL_CHUNK = 128
 # support pixels in one of K2's dP tiles, before the shared-memory budget
 BWD_TILE_PX = 2048
-# grid rows a band launch takes (csrc/composite_common.cuh kMaxBandRows)
-MAX_BAND_ROWS = 64
+# grid rows whose band starts travel in the launch's parameters (csrc/
+# composite_common.cuh kMaxBandRows); a taller grid passes them in device
+# memory
+PARAM_BAND_ROWS = 64
 
 
 def composite_plain(color, alpha, importance, boxes, image_hw,
@@ -320,10 +322,10 @@ def load_library(name: str) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {  # function: (argtypes, restype)
         "composite_fwd": {
-            "spair_composite_fwd": ([ptr] * 7 + [i32] * 7 + [f32, ptr]
+            "spair_composite_fwd": ([ptr] * 7 + [i32] * 7 + [f32, ptr, ptr]
                                     + [i32] * 4 + [ptr], i32)},
         "composite_bwd": {
-            "spair_composite_bwd": ([ptr] * 9 + [i32] * 8 + [ptr]
+            "spair_composite_bwd": ([ptr] * 9 + [i32] * 8 + [ptr, ptr]
                                     + [i32] * 4 + [ptr], i32),
             "spair_composite_bwd_smem": ([i32] * 7, ctypes.c_size_t)},
     }
@@ -426,17 +428,29 @@ def composite_forward(color, alpha, importance, boxes, image_hw,
 composite_forward.launches = 0
 
 
-def _band_args(bands, n: int):
-    """(starts as a ctypes array or None, gh, gw, band) for the C
-    interface; ``bands`` = (band, starts, gw) or None for no clip."""
+@functools.lru_cache(maxsize=None)
+def _device_starts(starts, device: torch.device) -> torch.Tensor:
+    """The band starts as an int32 tensor on ``device``, made once per
+    grid: the kernels read a tall grid's starts from it."""
+    return torch.tensor(starts, dtype=torch.int32, device=device)
+
+
+def _band_args(bands, n: int, device: torch.device):
+    """(host starts as a ctypes array or None, device starts pointer or
+    None, gh, gw, band) for the C interface; ``bands`` = (band, starts, gw)
+    as a tuple of ints, or None for no clip. Up to ``PARAM_BAND_ROWS`` grid
+    rows the starts go in the launch's parameters, beyond in device
+    memory."""
     if bands is None:
-        return None, 0, 0, 0
+        return None, None, 0, 0, 0
     band, starts, gw = bands
     gh = len(starts)
-    if gh * gw != n or not 1 <= gh <= MAX_BAND_ROWS:
-        raise ValueError(f"bands of {gh} grid rows of {gw} objects for N={n}"
-                         f" (at most {MAX_BAND_ROWS} rows)")
-    return (ctypes.c_int * gh)(*starts), gh, gw, int(band)
+    if gh < 1 or gh * gw != n:
+        raise ValueError(f"bands of {gh} grid rows of {gw} objects for N={n}")
+    if gh <= PARAM_BAND_ROWS:
+        return (ctypes.c_int * gh)(*starts), None, gh, gw, int(band)
+    dev = _device_starts(tuple(starts), device)
+    return None, dev.data_ptr(), gh, gw, int(band)
 
 
 def _launch_forward(color, alpha, importance, boxes, image_hw, pres_gate,
@@ -447,7 +461,7 @@ def _launch_forward(color, alpha, importance, boxes, image_hw, pres_gate,
                                          pres_gate, image_hw)
     ih, iw = image_hw
     floor_n = n if den_floor_n is None else int(den_floor_n)
-    band_args = _band_args(bands, n)
+    band_args = _band_args(bands, n, device)
     lib = load_library("composite_fwd")
     num = torch.empty((b, c, ih, iw), dtype=torch.float32, device=device)
     den = torch.empty((b, 1, ih, iw), dtype=torch.float32, device=device)
@@ -507,7 +521,7 @@ def _launch_backward(color, alpha, importance, boxes, image_hw, dnum, dden,
                                          pres_gate, image_hw)
     ih, iw = image_hw
     _check_cotangents(dnum, dden, b, c, image_hw)
-    band_args = _band_args(bands, n)
+    band_args = _band_args(bands, n, device)
     lib = load_library("composite_bwd")
     is_bf16 = int(color.dtype == torch.bfloat16)
     tile_px = _bwd_tile_px(c, oh, ow, ih, iw, is_bf16)

@@ -69,3 +69,18 @@ def crop_glimpses(image, boxes, object_shape, dtype=None):
         image, wy, wx = image.to(dtype), wy.to(dtype), wx.to(dtype)
     tmp = torch.einsum("bnyh,bchw->bncyw", wy, image)
     return torch.einsum("bncyw,bnxw->bncyx", tmp, wx)
+
+
+def paste_glimpses(glimpses, boxes, image_hw, dtype=None):
+    """glimpses (B, N, C, oh, ow), boxes (B, N, 4) -> per-object canvases
+    (B, N, C, H, W): the inverse-STN paste with ``paste_weights``
+    (align_corners=True, zeros padding). It materializes every object's
+    canvas, so it is for small inputs and tests; the compositors paste
+    chunk by chunk or in the kernels. With ``dtype`` both einsums run in
+    it."""
+    oh, ow = glimpses.shape[-2:]
+    py, px = paste_weights(boxes, (oh, ow), image_hw)
+    if dtype is not None:
+        glimpses, py, px = glimpses.to(dtype), py.to(dtype), px.to(dtype)
+    tmp = torch.einsum("bnhy,bncyx->bnchx", py, glimpses)
+    return torch.einsum("bnchx,bnwx->bnchw", tmp, px)

@@ -318,13 +318,16 @@ def main(argv=None):
                         "keep cadences multiples of K")
     p.add_argument("--render-mode", default=None,
                    choices=[None, "reference", "ordered"],
-                   help="compositing semantics ('ordered' is not ported)")
+                   help="compositing semantics: the reference's "
+                        "importance-normalized blend, or depth-ordered "
+                        "alpha-over")
     p.add_argument("--pres-gate", type=float, default=None,
                    help="presence-gate threshold for the compositor "
                         "(cfg.pres_gate_threshold)")
     p.add_argument("--render-topk", type=int, default=None,
                    help="composite only the K highest-presence objects "
-                        "(cfg.render_topk; not ported)")
+                        "(cfg.render_topk; needs --pres-gate; exact, with "
+                        "the full grid when an image has more live)")
     p.add_argument("--pres-entropy", type=float, default=None,
                    help="weight of the Bernoulli-entropy penalty on the "
                         "relaxed presence probabilities "

@@ -16,6 +16,7 @@ HEAD_NAMES = {
     "obj_network": "obj_net",
     "object_decoder": "object_decoder",
     "virtual_edge_element": "edge",
+    "self_attn": "self_attn",
 }
 
 

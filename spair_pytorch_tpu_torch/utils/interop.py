@@ -8,6 +8,16 @@ weights (in, out) -> (out, in). The port's modules carry those names, so
 the result loads with ``load_state_dict(strict=True)``. ``adam_state_from_
 jax`` maps optax's Adam moments through the same transposes onto torch
 Adam's per-parameter state.
+
+Two option groups have no reference names, and the JAX converter covers
+neither; the port names them (``ops/convcodec.py`` states its names):
+the conv codec (``cfg.object_codec='conv'``) as ``object_encoder.convs.<i>``
+(HWIO -> OIHW), ``object_encoder.out``, ``object_decoder.inp`` and
+``object_decoder.deconvs.<i>``, whose transposed-conv kernels go HWIO ->
+(in, out, kh, kw) flipped in both spatial axes (the JAX transposed conv
+does not flip its kernel, ``F.conv_transpose2d`` does); and the vestigial
+self-attention (``cfg.vestigial_self_attn``) as ``self_attn.query.out``,
+``self_attn.key.out``, ``self_attn.value.out`` and ``self_attn.gamma``.
 """
 
 from __future__ import annotations
@@ -31,17 +41,40 @@ def _linear(prefix: str, layer, out: Dict[str, np.ndarray]):
     out[f"{prefix}.bias"] = np.asarray(layer["b"]).copy()
 
 
+def _conv(prefix: str, layer, out: Dict[str, np.ndarray]):
+    out[f"{prefix}.weight"] = np.asarray(layer["w"]).transpose(
+        3, 2, 0, 1).copy()
+    out[f"{prefix}.bias"] = np.asarray(layer["b"]).copy()
+
+
+def _conv_transpose(prefix: str, layer, out: Dict[str, np.ndarray]):
+    w = np.flip(np.asarray(layer["w"]), (0, 1))        # (k, k, in, out)
+    out[f"{prefix}.weight"] = w.transpose(2, 3, 0, 1).copy()
+    out[f"{prefix}.bias"] = np.asarray(layer["b"]).copy()
+
+
+def _conv_codec(sd_name: str, p, out: Dict[str, np.ndarray]):
+    for i, layer in enumerate(p.get("convs", ())):
+        _conv(f"{sd_name}.convs.{i}", layer, out)
+    for i, layer in enumerate(p.get("deconvs", ())):
+        _conv_transpose(f"{sd_name}.deconvs.{i}", layer, out)
+    for name in ("out", "inp"):
+        if name in p:
+            _linear(f"{sd_name}.{name}", p[name], out)
+
+
 def state_dict_from_jax(params_np) -> Dict[str, np.ndarray]:
     """JAX param pytree (numpy leaves) -> {state_dict key: numpy array}."""
     out: Dict[str, np.ndarray] = {}
     layers = params_np["backbone"]["layers"]
     for i, layer in enumerate(layers):
         name = f"conv_{i}" if i < len(layers) - 1 else "conv_out"
-        out[f"backbone.net.{name}.weight"] = np.asarray(
-            layer["w"]).transpose(3, 2, 0, 1).copy()
-        out[f"backbone.net.{name}.bias"] = np.asarray(layer["b"]).copy()
+        _conv(f"backbone.net.{name}", layer, out)
     for sd_name, jax_name, multi in _MLPS:
         p = params_np[jax_name]
+        if "trunk" not in p:  # the conv codec's encoder or decoder
+            _conv_codec(sd_name, p, out)
+            continue
         body = f"{sd_name}.body" if multi else sd_name
         for i, layer in enumerate(p["trunk"]):
             _linear(f"{body}.dense{i}", layer, out)
@@ -51,6 +84,11 @@ def state_dict_from_jax(params_np) -> Dict[str, np.ndarray]:
         else:
             _linear(f"{sd_name}.out", p["heads"][0], out)
     out["virtual_edge_element"] = np.asarray(params_np["edge"]).copy()
+    if "self_attn" in params_np:
+        attn = params_np["self_attn"]
+        for name in ("query", "key", "value"):
+            _linear(f"self_attn.{name}.out", attn[name]["heads"][0], out)
+        out["self_attn.gamma"] = np.asarray(attn["gamma"]).copy()
     return out
 
 

@@ -487,3 +487,101 @@ def test_v3_forward_equals_k1_for_boxes_in_their_bands(cuda):
         want = K.composite_forward(*glimpses, boxes, P128[0])
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# a tall, narrow canvas of 72 x 8 cells of 8 px: more grid rows than the
+# launch's parameters carry (K.PARAM_BAND_ROWS = 64), so K3 and K4 read the
+# band starts from device memory; 64 rows still take the parameter
+def tall(gh):
+    return ((8 * gh, 64), 8, (gh, 8), (-0.5, 1.5, 0.06))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gh", [64, 65, 72])
+@pytest.mark.parametrize("dtype", sorted(BARS))
+def test_v3_grids_past_the_parameter_rows(cuda, gh, dtype):
+    geom = tall(gh)
+    band, starts = V.band_geometry(geom[0], geom[1], *geom[3], 14, gh)
+    assert band < geom[0][0] and len(set(starts.tolist())) > 1
+    glimpses, boxes = v3_case(50 + gh, 2, 1, 14, geom, cuda)
+    v3_held(glimpses, boxes, geom, cuda, dtype)
+
+
+@pytest.mark.gpu
+def test_v3_tall_grid_equals_k1_for_boxes_in_their_bands(cuda):
+    """At 72 grid rows, with boxes inside their bands, K3's num and den
+    equal K1's bit for bit: the starts read from device memory clip
+    nothing that K1 pastes."""
+    geom = tall(72)
+    glimpses, boxes = v3_case(46, 2, 1, 14, geom, cuda, past_band=False)
+    with torch.no_grad():
+        got = V.composite_v3_forward(*glimpses, boxes, *geom)
+        want = K.composite_forward(*glimpses, boxes, geom[0])
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ------------------------------------- top-K through K1/K2 (render_topk)
+
+def topk_latents(cfg, b, live, dev, seed=0):
+    """Latent grids for render on cfg's grid: boxes on the cell centres,
+    presence 0.9 on ``live`` random cells of each image and 0.001
+    elsewhere (the 0.01 gate drops those)."""
+    from spair_pytorch_tpu_torch.models.latents import geometry
+    _, (gh, gw), _ = geometry(cfg)
+    rng = np.random.RandomState(seed)
+    n = gh * gw
+    pres = np.full((b, n), 0.001, "f")
+    for i in range(b):
+        pres[i, rng.choice(n, live, replace=False)] = 0.9
+    yy, xx = np.meshgrid((np.arange(gh) + 0.5) / gh,
+                         (np.arange(gw) + 0.5) / gw, indexing="ij")
+    where = np.concatenate([np.stack([xx, yy], -1).reshape(1, n, 2)
+                            .repeat(b, 0),
+                            rng.uniform(0.1, 0.3, (b, n, 2))], -1)
+    zs = (rng.randn(b, n, cfg.n_attributes), where,
+          rng.uniform(0.5, 3.5, (b, n, 1)), pres[..., None])
+    return [torch.as_tensor(z.reshape(b, gh, gw, -1).astype("f"), device=dev)
+            for z in zs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live", [5, 40], ids=["sparse", "dense"])
+def test_reference_topk_through_the_kernels(cuda, monkeypatch, live):
+    """cluttered_fine's 16 x 16 grid, K = 32, the 0.01 gate: with at most
+    K live objects an image, K1 and K2 run once each on N = K objects and
+    match the full gated grid (values 1e-6, gradients against z_attr and
+    z_where rtol 5e-4 / atol 1e-5, the JAX package's top-K bars); with more
+    the full grid runs, N = 256."""
+    import dataclasses
+
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.models import init_params
+    from spair_pytorch_tpu_torch.models.render import render
+
+    topk = PRESETS["cluttered_fine"]()
+    full = dataclasses.replace(topk, render_topk=0)
+    model = init_params(topk, device=cuda)
+    zs = topk_latents(topk, 4, live, cuda)
+    sizes = []
+    for name in ("_launch_forward", "_launch_backward"):
+        fn = getattr(K, name)
+        monkeypatch.setattr(K, name, lambda *a, _fn=fn, **kw: (
+            sizes.append(a[0].shape[1]), _fn(*a, **kw))[1])
+
+    def run(cfg):
+        a, w = (z.clone().requires_grad_(True) for z in zs[:2])
+        out = render(model, cfg, a, w, zs[2], zs[3], (128, 128))
+        torch.sum(out ** 2).backward()
+        return out.detach(), a.grad, w.grad
+
+    want = run(full)
+    del sizes[:]
+    got = run(topk)
+    torch.cuda.synchronize()
+    assert sizes == ([32, 32] if live <= 32 else [256, 256])
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-6, atol=1e-6)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=5e-4, atol=1e-5)

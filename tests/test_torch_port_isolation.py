@@ -33,6 +33,7 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
     mods = port_modules()
     assert "spair_pytorch_tpu_torch.ops.kernels.composite_v3" in mods
     assert "spair_pytorch_tpu_torch.train" in mods
+    assert "spair_pytorch_tpu_torch.ops.convcodec" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
