@@ -2,9 +2,10 @@
 """On-card smoke run of the PyTorch/CUDA port (spair_pytorch_tpu_torch).
 
 Drives the port's serving path, its training step, its training entry
-point through the banded compositor ('pallas_v3') at paper128 width, and
-the model options of three more presets, on one CUDA card, with random
-weights from the preset's seed:
+point through the banded compositor ('pallas_v3') at paper128 width, the
+model options of three more presets, and the host data inputs, int8
+serving, data-parallel training (world size 1) and the tools, on one CUDA
+card, with random weights from the preset's seed:
 
   1. device     the card's name and power limit (nvidia-smi);
   2. build      compiles csrc/composite_fwd.cu (K1, and K3 as its banded
@@ -78,6 +79,25 @@ weights from the preset's seed:
                 the loss without it bit for bit); (e) the sequential and
                 the parallel count prior, and the ordered compositor's full
                 scan and top-32, timed in turns.
+ 14. inputs     the data inputs, int8 serving, data parallelism and the
+                tools: (a) the paper128 detector at B=32, wavefront, with
+                f32, bf16 and int8 weights, timed in turns, int8 against
+                f32 (count agreement, max |score| and |box| differences),
+                every int8 product it computes held to the exact integer
+                product, and `serve --quantize int8` on 64 requests; (b)
+                10 train() steps of the main path with --data native
+                against the on-device generator, in turns (device, native,
+                native, device), ms/step and K1/K2 launches, and the
+                native generator's host time a batch;
+                (c) 10 train() steps of the main path with --mesh (world
+                size 1, NCCL) against 10 without, under deterministic
+                algorithms: parameters equal bit for bit; one step with the
+                NaN hunter on against off: losses equal bit for bit; (d)
+                peak device memory of a main-path step at b128 and of a
+                tpu_throughput step at b256 (utils/memory.py); (e)
+                profile.py over 3 steps (its trace names K1 and K2) and an
+                export.py round trip of the mesh run's parameters, bit for
+                bit.
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
 cuDNN convs in full f32), so kernels and plain versions are compared on the
@@ -92,9 +112,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import torch
 
@@ -1212,6 +1235,314 @@ def options_phase(K, V, card, dev):
     phase("options", f"phase 13 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 14: the main path's configuration (phase 9's) and its train() runs
+INPUT_STEPS = 10
+
+
+def main_path_config():
+    from spair_pytorch_tpu_torch.config import PRESETS
+    return PRESETS["paper128"](batch_size=TRAIN_B, inference_mode="wavefront",
+                               compute_dtype="bfloat16",
+                               pres_gate_threshold=0.01)
+
+
+def int8_phase(card, dev):
+    """Phase 14(a): the int8 detector against f32 and bf16 at B=32, every
+    int8 product against the exact one, and serve --quantize int8."""
+    from spair_pytorch_tpu_torch import serve
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.data import generate_batch, glyph_bank
+    from spair_pytorch_tpu_torch.models import init_params
+    from spair_pytorch_tpu_torch.models.infer import make_detector
+    from spair_pytorch_tpu_torch.ops import quant
+    from spair_pytorch_tpu_torch.train import data_config
+
+    cfg = PRESETS["paper128"]()
+    params = init_params(cfg, device=dev)
+    qparams = quant.quantize_params_int8(params)
+    dcfg = data_config(cfg)
+    bank = torch.as_tensor(glyph_bank(dcfg.patch_hw), device=dev)
+    x = generate_batch(torch.Generator(device=dev).manual_seed(14), bank, B,
+                       dcfg)[0]
+    arms = {"f32": (make_detector(cfg), params),
+            "bf16": (make_detector(dataclasses.replace(
+                cfg, compute_dtype="bfloat16")), params),
+            "int8": (make_detector(cfg), qparams)}
+
+    # every product of one int8 call, on its own operands; these held
+    # products are not the detector's launches
+    launch, held = quant.int_mm, {}
+
+    def record(a, w):
+        out = launch(a, w)
+        key = (a.shape[0], a.shape[1], w.shape[0])
+        if key not in held:
+            held[key] = torch.equal(out, quant.int_mm_plain(a, w.t()))
+        return out
+
+    quant.int_mm = record
+    try:
+        out_q = arms["int8"][0](qparams, x)
+    finally:
+        quant.int_mm = launch
+    padded = sorted(k for k in held
+                    if k[0] <= 16 or k[1] % 8 or k[2] % 8)
+    phase("int8", f"{len(held)} int8 product shapes (rows, inner, out) at "
+                  f"B={B}, every one equal to the exact integer product: "
+                  f"{all(held.values())}; padded for _int_mm: {padded}")
+    if not all(held.values()):
+        raise AssertionError(f"an int8 product is off: {held}")
+    out_f = arms["f32"][0](params, x)
+    agree = float((out_q["count"] == out_f["count"]).float().mean())
+    d_score = float((out_q["scores"] - out_f["scores"]).abs().max())
+    d_box = float((out_q["boxes"] - out_f["boxes"]).abs().max())
+    if not bool(torch.isfinite(out_q["scores"]).all()):
+        raise AssertionError("non-finite int8 scores")
+    times = {k: [] for k in arms}
+    for k in ("f32", "bf16", "int8", "int8", "bf16", "f32"):
+        fn, p = arms[k]
+        times[k].append(cuda_ms(lambda: fn(p, x), 5))
+    phase("int8", f"int8 against f32 at B={B}, random weights: counts agree "
+                  f"on {agree:.3f} of the images, max |score diff| "
+                  f"{d_score:.3e}, max |box diff| {d_box:.3e} px")
+    for k, t in times.items():
+        ms = sum(t) / 2
+        phase("int8", f"detector {k} B={B} wavefront: "
+                      f"{', '.join(f'{v:.3f}' for v in t)} ms/call, "
+                      f"{B / ms * 1e3:.1f} img/s ({card})")
+    dets = serve.main(["--quantize", "int8", "--requests", "64", "--batch",
+                       "32"])
+    if len(dets) != 64:
+        raise AssertionError("serve --quantize int8 answered "
+                             f"{len(dets)} of 64 requests")
+
+
+def train_run(K, cfg, **kw):
+    """train() of INPUT_STEPS steps in a temporary run directory: (final
+    state, ms/step by CUDA events around the call, K1/K2 launches, the
+    logged losses)."""
+    from spair_pytorch_tpu_torch.train import train
+    with tempfile.TemporaryDirectory() as logdir:
+        K.composite_forward.launches = K.composite_backward.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state = train(cfg, steps=INPUT_STEPS, logdir=logdir,
+                      checkpoint_every=0, metrics_every=1, digits="font",
+                      verbose=False, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        with open(f"{logdir}/metrics.jsonl") as f:
+            losses = [json.loads(line).get("losses/total") for line in f]
+    losses = [v for v in losses if v is not None]
+    if len(losses) != INPUT_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train({kw}): losses {losses}")
+    return (state, start.elapsed_time(end) / INPUT_STEPS,
+            (K.composite_forward.launches, K.composite_backward.launches),
+            losses)
+
+
+def native_phase(K, card, dev):
+    """Phase 14(b): the main path fed by the native C++ generator against
+    the on-device generator, one step a call each."""
+    from spair_pytorch_tpu_torch.data import glyph_bank
+    from spair_pytorch_tpu_torch.data.native import (NativeScatteredDigits,
+                                                     build_native)
+    from spair_pytorch_tpu_torch.train import data_config
+
+    cfg = main_path_config()
+    # the library's one-time build stays out of the timed runs
+    t0 = time.perf_counter()
+    lib = build_native()
+    phase("native", f"g++ build of native/scattered_digits.cc: "
+                    f"{time.perf_counter() - t0:.2f} s -> {lib.name}")
+    # in turns, so a host that slows over the call weighs on both sources
+    times = {"device": [], "native": []}
+    for source in ("device", "native", "native", "device"):
+        _, ms, launches, losses = train_run(K, cfg, data_source=source,
+                                            device=dev)
+        times[source].append(ms)
+        phase("native", f"train() --data {source}, main path b{TRAIN_B}: "
+                        f"{INPUT_STEPS} steps, losses {losses[0]:.1f} -> "
+                        f"{losses[-1]:.1f}; {ms:.3f} ms/step, "
+                        f"{TRAIN_B / ms * 1e3:.1f} img/s (CUDA events around"
+                        f" train(), set-up included; {card}); launches K1 "
+                        f"{launches[0]}, K2 {launches[1]}")
+        if min(launches) < INPUT_STEPS:
+            raise AssertionError(f"--data {source} did not launch K1/K2 "
+                                 "every step")
+    ratio = sum(times["native"]) / sum(times["device"])
+    phase("native", f"native / device ms/step over the four runs: "
+                    f"{ratio:.3f}")
+    dcfg = data_config(cfg)
+    gen = NativeScatteredDigits(dcfg, TRAIN_B, bank=glyph_bank(dcfg.patch_hw),
+                                device=dev)
+    next(gen)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        next(gen)
+    torch.cuda.synchronize()
+    phase("native", f"native generator b{TRAIN_B}, {gen.n_threads} threads:"
+                    f" {(time.perf_counter() - t0) * 100:.3f} ms a batch "
+                    f"(host clock, copies to the card included)")
+
+
+def mesh_phase(K, card, dev):
+    """Phase 14(c): train() with --mesh at world size 1 over NCCL against
+    train() without, and one step with the NaN hunter on against off, under
+    deterministic algorithms. Returns the mesh run's final state."""
+    from spair_pytorch_tpu_torch.data import glyph_bank
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+    from spair_pytorch_tpu_torch.train import data_config
+    from spair_pytorch_tpu_torch.utils.debug import enable_nan_hunter
+
+    import torch.distributed as dist
+
+    from spair_pytorch_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = main_path_config()
+    dcfg = data_config(cfg)
+    bank = torch.as_tensor(glyph_bank(dcfg.patch_hw), device=dev)
+    # the world of one and its NCCL communicator exist before the timed
+    # runs: train() joins the group, so their set-up stays out of its time
+    t0 = time.perf_counter()
+    world = make_mesh(dev)
+    dist.all_reduce(torch.zeros(1, device=dev))
+    torch.cuda.synchronize()
+    phase("mesh", f"NCCL world of {world.world_size} on {world.device}: "
+                  f"{time.perf_counter() - t0:.2f} s to start")
+    torch.backends.cudnn.deterministic = True
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            plain, ms_p, _, _ = train_run(K, cfg, steps_per_call=10,
+                                          device=dev)
+            mesh, ms_m, launches, _ = train_run(K, cfg, steps_per_call=10,
+                                                use_mesh=True, device=dev)
+            losses = []
+            for on in (False, True):
+                state = create_train_state(cfg, device=dev)
+                step = make_train_step(cfg, datagen=(dcfg, bank))
+                enable_nan_hunter(on)
+                try:
+                    losses.append(step(state)[1]["losses/total"])
+                finally:
+                    enable_nan_hunter(False)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+            world.close()
+    nondet = sorted({str(w.message).split(" does not have")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    pairs = [(p.detach(), q.detach()) for p, q in zip(
+        plain.model.parameters(), mesh.model.parameters())]
+    equal = sum(torch.equal(p, q) for p, q in pairs)
+    diff = max(float((p - q).abs().max()) for p, q in pairs)
+    phase("mesh", f"train() --mesh (world 1, NCCL) against train(), "
+                  f"{INPUT_STEPS} main-path steps each, deterministic "
+                  f"algorithms: {equal} of {len(pairs)} parameter tensors "
+                  f"equal bit for bit (max |diff| {diff:.3e}); {ms_m:.3f} "
+                  f"against {ms_p:.3f} ms/step (CUDA events around "
+                  f"train(), set-up included; {card}); launches K1 "
+                  f"{launches[0]}, K2 {launches[1]}; ops without a "
+                  f"deterministic form: {nondet or 'none'}")
+    if equal != len(pairs):
+        raise AssertionError("the world-of-one mesh run differs from the "
+                             "plain run")
+    same = torch.equal(losses[0], losses[1])
+    phase("mesh", f"one main-path step with the NaN hunter off / on: loss "
+                  f"{float(losses[0]):.3f} / {float(losses[1]):.3f}, equal "
+                  f"bit for bit: {same}")
+    if not same:
+        raise AssertionError("the NaN hunter changed the loss")
+    return mesh
+
+
+def memory_phase(card, dev):
+    """Phase 14(d): peak device memory of one train step, read through
+    utils/memory.py."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.data import glyph_bank
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+    from spair_pytorch_tpu_torch.train import data_config
+    from spair_pytorch_tpu_torch.utils.memory import (device_memory_stats,
+                                                      live_array_report)
+
+    gib = 2.0 ** 30
+    for name, cfg in (("main path", main_path_config()),
+                      ("tpu_throughput", PRESETS["tpu_throughput"]())):
+        dcfg = data_config(cfg)
+        bank = torch.as_tensor(glyph_bank(dcfg.patch_hw), device=dev)
+        state = create_train_state(cfg, device=dev)
+        step = make_train_step(cfg, datagen=(dcfg, bank))
+        step(state)  # Adam's moments and the allocator's pools exist
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = device_memory_stats()[str(dev)]["allocated_bytes.all.current"]
+        step(state)
+        torch.cuda.synchronize()
+        stats = device_memory_stats()[str(dev)]
+        phase("memory", f"{name} step b{cfg.batch_size} "
+                        f"{cfg.compute_dtype}: peak allocated "
+                        f"{stats['allocated_bytes.all.peak'] / gib:.3f} GiB "
+                        f"({(stats['allocated_bytes.all.peak'] - held) / gib:.3f}"
+                        f" GiB above the {held / gib:.3f} GiB held between "
+                        f"steps), peak reserved "
+                        f"{stats['reserved_bytes.all.peak'] / gib:.3f} GiB "
+                        f"({card})")
+        if name == "main path":
+            print(live_array_report(5), flush=True)
+        del state, step
+
+
+def tools_phase(state, dev):
+    """Phase 14(e): export.py writes ``state``'s parameters and imports
+    them back bit for bit; profile.py's trace names K1 and K2."""
+    from spair_pytorch_tpu_torch import export, profile
+    from spair_pytorch_tpu_torch.config import config_to_json
+    from spair_pytorch_tpu_torch.parallel import create_train_state
+    from spair_pytorch_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cfg = main_path_config()
+    with tempfile.TemporaryDirectory() as d:
+        for run in ("run", "fresh"):
+            os.makedirs(os.path.join(d, run))
+            with open(os.path.join(d, run, "config.json"), "w") as f:
+                f.write(config_to_json(cfg))
+        CheckpointManager(os.path.join(d, "run", "checkpoints")).save(state)
+        pkl = export.main(["--logdir", os.path.join(d, "run"), "--out",
+                           os.path.join(d, "s.pkl")])
+        export.main(["--import-pkl", pkl, "--logdir",
+                     os.path.join(d, "fresh")])
+        back = CheckpointManager(os.path.join(d, "fresh", "checkpoints")
+                                 ).restore(create_train_state(
+                                     dataclasses.replace(cfg, seed=5),
+                                     device=dev))
+    equal = all(torch.equal(p, q) for p, q in zip(state.model.parameters(),
+                                                  back.model.parameters()))
+    phase("tools", f"export.py of the mesh run, then --import-pkl into a "
+                   f"fresh run: parameters equal bit for bit: {equal}")
+    if not equal:
+        raise AssertionError("the export round trip changed the parameters")
+    with tempfile.TemporaryDirectory() as out:
+        bench, path = profile.main(["--preset", "paper128", "--steps", "3",
+                                    "--warmup", "1", "--out", out])
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kernels = {k: sorted(n for n in names if k in n)
+               for k in ("composite_fwd_kernel", "composite_bwd_kernel")}
+    phase("tools", f"profile.py, paper128 b32, 3 steps: "
+                   f"{', '.join(f'{v * 1e3:.3f}' for v in bench.times('train_step'))}"
+                   f" ms/step (CUDA events); its trace names "
+                   f"{sum(map(len, kernels.values()))} K1/K2 instantiations: "
+                   f"{[demangle(n) for v in kernels.values() for n in v]}")
+    if not all(kernels.values()):
+        raise AssertionError(f"the trace lacks a kernel: {kernels}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is visible")
@@ -1367,6 +1698,15 @@ def main():
 
     # 13. the model options of cluttered_fine, quality and tpu_throughput
     options_phase(K, V, card, dev)
+
+    # 14. the data inputs, int8 serving, data parallelism and the tools
+    t_phase = time.perf_counter()
+    int8_phase(card, dev)
+    native_phase(K, card, dev)
+    meshed = mesh_phase(K, card, dev)
+    memory_phase(card, dev)
+    tools_phase(meshed, dev)
+    phase("inputs", f"phase 14 in {time.perf_counter() - t_phase:.1f} s")
 
     # the kernels at the main paths' batch, B=128, on the same inputs; K3
     # and K4 are the same sources' kernels launched with a band

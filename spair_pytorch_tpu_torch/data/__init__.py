@@ -1,6 +1,7 @@
 from spair_pytorch_tpu_torch.data.scattered_mnist import (  # noqa: F401
     DataConfig,
     OnDeviceScatteredDigits,
+    ScatteredMNISTFile,
     draw_scenes,
     generate_batch,
     glyph_bank,

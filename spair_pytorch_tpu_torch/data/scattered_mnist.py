@@ -7,7 +7,8 @@ slots all zero), count (1,). The random draws (``draw_scenes``) are kept
 apart from the deterministic placement (``place_patches``), so the
 placement can be held against the JAX generator on the same draws.
 ``OnDeviceScatteredDigits`` is the infinite iterator the training and
-evaluation loops draw from.
+evaluation loops draw from. ``ScatteredMNISTFile`` reads the same schema
+from a reference-layout HDF5 file (h5py, imported when a file is opened).
 """
 
 from __future__ import annotations
@@ -136,3 +137,36 @@ class OnDeviceScatteredDigits:
     def __next__(self):
         return generate_batch(self.generator, self.bank, self.batch,
                               self.dcfg)
+
+
+class ScatteredMNISTFile:
+    """Reader for the reference HDF5 schema: file[group] with datasets
+    image (N, H, W), bbox (N, M, 4) and digit_count (N, 1). Yields numpy
+    float32 batches (image (B, 1, H, W), bbox, count), as the JAX package's
+    reader does."""
+
+    def __init__(self, path: str, group: str = "train/full"):
+        import h5py  # only file-backed data needs it
+        self._h5 = h5py.File(path, "r")[group]
+
+    def __len__(self):
+        return self._h5["image"].shape[0]
+
+    def close(self):
+        self._h5.file.close()
+
+    def __getitem__(self, index):
+        image = np.asarray(self._h5["image"][index], np.float32)[None]
+        bbox = np.asarray(self._h5["bbox"][index], np.float32)
+        count = np.asarray(self._h5["digit_count"][index], np.float32)
+        return image, bbox, count
+
+    def batches(self, batch_size: int, drop_last: bool = True):
+        n = len(self)
+        for start in range(0, n - (batch_size if drop_last else 1) + 1,
+                           batch_size):
+            idx = slice(start, min(start + batch_size, n))
+            image = np.asarray(self._h5["image"][idx], np.float32)[:, None]
+            bbox = np.asarray(self._h5["bbox"][idx], np.float32)
+            count = np.asarray(self._h5["digit_count"][idx], np.float32)
+            yield image, bbox, count

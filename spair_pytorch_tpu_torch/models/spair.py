@@ -37,6 +37,7 @@ from spair_pytorch_tpu_torch.models.latents import (apply_self_attn,
 from spair_pytorch_tpu_torch.models.render import render
 from spair_pytorch_tpu_torch.ops.math import binary_cross_entropy_sum, safe_log
 from spair_pytorch_tpu_torch.ops.schedules import exponential_decay
+from spair_pytorch_tpu_torch.utils.debug import nan_hunter
 
 __all__ = ["init_params", "forward", "infer_latents", "loss_and_metrics",
            "geometry", "inference_schedule", "neighbor_offsets"]
@@ -209,31 +210,41 @@ def _scan_inference(params, cfg, geom, x, feat_flat, noise_flat, tw, dtype,
     return _tree_map(lambda *steps: torch.cat(steps, dim=1)[:, perm], *outs)
 
 
-def forward(params, cfg: SpairConfig, x, step, generator=None, noise=None):
+def forward(params, cfg: SpairConfig, x, step, generator=None, noise=None,
+            batch_share: float = 1.0):
     """Full inference and generation pass.
 
     x (B, C, H, W) in [0, 1]; step drives the schedules; ``generator``
     draws this pass's noise unless ``noise`` is given. Returns (loss, aux)
     with the reconstruction, the latent grids in NCHW, the training-wheel
-    value and every logged loss term."""
+    value and every logged loss term.
+
+    ``batch_share``: the share of a global batch that x is (data
+    parallelism): the batch-mean terms are scaled by it, so the losses of
+    the ranks' slices sum to the global batch's loss (the reconstruction
+    term is already a sum over the batch)."""
     z = infer_latents(params, cfg, x, step, generator, noise)
     z_where, z_attr = z["z_where"], z["z_attr"]
     z_depth, z_pres = z["z_depth"], z["z_pres"]
     z_pres_prob, tw = z["z_pres_prob"], z["training_wheel"]
+    nan_hunter("after inference", z_where=z_where, z_pres=z_pres,
+               z_depth=z_depth, feat=z["feat_flat"])
 
     kls = independent_kl(z["posterior"], z_pres, cfg)
     count_kl = (count_prior_kl_parallel if cfg.count_prior_parallel
                 else count_prior_kl)
     kls["pres_dist"] = count_kl(z_pres_prob, z_pres, step, cfg)
+    nan_hunter("KL divergence", **kls)
     recon = render(params, cfg, z_attr, z_where, z_depth, z_pres,
                    cfg.image_shape[1:], compute_dtype(cfg)).to(torch.float32)
-    loss, terms = loss_and_metrics(x, recon, kls, cfg)
+    nan_hunter("render", recon=recon)
+    loss, terms = loss_and_metrics(x, recon, kls, cfg, batch_share)
 
     if cfg.pres_entropy_weight:
         # borderline-presence penalty, off while the training wheel is on
         p = z_pres_prob
         ent = -(p * safe_log(p) + (1.0 - p) * safe_log(1.0 - p))
-        ent_mean = torch.mean(torch.sum(ent, dim=(1, 2, 3)))
+        ent_mean = _batch_mean(torch.sum(ent, dim=(1, 2, 3)), batch_share)
         loss = loss + cfg.pres_entropy_weight * (1.0 - tw) * ent_mean
         terms["losses/pres_entropy"] = ent_mean
         terms["losses/total"] = loss
@@ -264,14 +275,23 @@ def forward(params, cfg: SpairConfig, x, step, generator=None, noise=None):
     return loss, aux
 
 
-def loss_and_metrics(x, recon, kls: Dict, cfg: SpairConfig):
+def _batch_mean(t, batch_share: float):
+    """The batch mean of t (B,), scaled by ``batch_share`` when x is a
+    rank's slice of a global batch."""
+    mean = torch.mean(t)
+    return mean if batch_share == 1.0 else mean * batch_share
+
+
+def loss_and_metrics(x, recon, kls: Dict, cfg: SpairConfig,
+                     batch_share: float = 1.0):
     """Pixel-sum BCE + vae_beta * sum over latents of the batch-mean KL
-    sums; (loss, terms under the reference's TensorBoard tags)."""
+    sums; (loss, terms under the reference's TensorBoard tags). The batch
+    means are scaled by ``batch_share`` (see ``forward``)."""
     recon_loss = binary_cross_entropy_sum(recon, x)
     terms = {"losses/reconst": recon_loss}
     kl_loss = 0.0
     for name, z_kl in kls.items():
-        kl_mean = torch.mean(torch.sum(z_kl, dim=(1, 2, 3)))
+        kl_mean = _batch_mean(torch.sum(z_kl, dim=(1, 2, 3)), batch_share)
         kl_loss = kl_loss + kl_mean
         terms[f"losses/KL{name}"] = kl_mean
     loss = recon_loss + cfg.vae_beta * kl_loss

@@ -6,6 +6,8 @@ permuted to the JAX package's (B, grid_h, grid_w, F) feature grid. Under
 bf16 compute the input, weights and biases are cast in the forward, so the
 float32 weights stay the masters. Module
 names follow the reference state_dict (``net.conv_<i>``, ``net.conv_out``).
+A conv that ``ops/quant.py`` quantized runs its int8 product on the float32
+input, its output cast back to the compute dtype.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from spair_pytorch_tpu_torch.ops.quant import conv_int8, is_quantized
 
 
 def uniform_fan_in_(tensor, fan_in: int, generator: torch.Generator):
@@ -84,7 +88,9 @@ class Backbone(nn.Module):
         dtype = dtype or x_nchw.dtype
         x = self.pad(x_nchw.to(dtype))
         for m in self.net:
-            if isinstance(m, nn.Conv2d):
+            if is_quantized(m):
+                x = conv_int8(m, x).to(dtype)
+            elif isinstance(m, nn.Conv2d):
                 x = F.conv2d(x, m.weight.to(dtype), m.bias.to(dtype),
                              m.stride)
             else:

@@ -4,6 +4,8 @@
 Module names follow the reference state_dict: a multi-head net keeps its
 trunk under ``body`` (``body.dense<i>``) and its heads in
 ``output_layers.<j>``; a single-head net holds ``dense<i>`` and ``out``.
+A layer that ``ops/quant.py`` quantized runs its int8 product; quantized
+heads run one by one, unpacked.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from spair_pytorch_tpu_torch.ops.quant import dense_int8, is_quantized
 
 
 class MLP(nn.Module):
@@ -50,19 +54,24 @@ class MLP(nn.Module):
                 w, b = w.to(dtype), b.to(dtype)
             return F.linear(v, w, b)
 
+        def layer_out(v, layer):
+            if is_quantized(layer):
+                out = dense_int8(layer, v)
+                return out.to(dtype) if dtype is not None else out
+            return dense(v, layer.weight, layer.bias)
+
         if dtype is not None:
             x = x.to(dtype)
         trunk = self.body if self.multi else self
         for i in range(self.n_hidden):
-            layer = getattr(trunk, f"dense{i}")
-            x = torch.relu(dense(x, layer.weight, layer.bias))
+            x = torch.relu(layer_out(x, getattr(trunk, f"dense{i}")))
         heads = self.heads()
-        if packed and len(heads) > 1:
+        if packed and len(heads) > 1 and not any(map(is_quantized, heads)):
             w = torch.cat([h.weight for h in heads], dim=0)
             b = torch.cat([h.bias for h in heads], dim=0)
             outs = torch.split(dense(x, w, b), self.widths, dim=-1)
         else:
-            outs = [dense(x, h.weight, h.bias) for h in heads]
+            outs = [layer_out(x, h) for h in heads]
         if dtype is not None:
             outs = [o.to(torch.float32) for o in outs]
         return tuple(outs)

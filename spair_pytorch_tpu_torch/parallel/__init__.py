@@ -1,3 +1,9 @@
+from spair_pytorch_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    make_mesh,
+    replicate,
+    shard_batch,
+)
 from spair_pytorch_tpu_torch.parallel.train_step import (  # noqa: F401
     TrainState,
     create_train_state,

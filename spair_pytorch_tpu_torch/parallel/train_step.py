@@ -4,9 +4,18 @@ train_step.py``, single device).
 A step is forward, backward, optional global-norm clipping and Adam with
 the reference's settings (lr from the config, betas (0.9, 0.999), eps 1e-8).
 It updates the ``TrainState`` in place and returns it with its metrics,
-which stay on the device: a step makes no host sync. Data parallelism and
-the JAX package's mesh arguments belong to a later slice. ``scan_remat`` and
+which stay on the device: a step makes no host sync. ``scan_remat`` and
 ``scan_remat_policy`` change memory, not values, and are ignored here.
+
+With a ``mesh`` (``parallel/mesh.py``) the step is data parallel:
+``cfg.batch_size`` is the global batch and each rank trains on its slice.
+Every rank draws the global batch's scenes and noise from a generator in
+the same state and keeps its slice, so the ranks together compute the
+one-process step. Each rank's loss is its share of the global loss (the
+reconstruction sum over its slice plus the batch-mean terms over the global
+batch, ``forward(batch_share=)``); the gradients are summed over the ranks
+before clipping and Adam, and the metrics are reduced. At world size 1 the
+step is the step without a mesh, bit for bit.
 """
 
 from __future__ import annotations
@@ -19,8 +28,12 @@ import torch
 from spair_pytorch_tpu_torch import metrics as metric
 from spair_pytorch_tpu_torch.config import SpairConfig
 from spair_pytorch_tpu_torch.data import generate_batch
-from spair_pytorch_tpu_torch.models.latents import SpairModel, init_params
+from spair_pytorch_tpu_torch.data.sharded import generate_host_local
+from spair_pytorch_tpu_torch.models.latents import (SpairModel, geometry,
+                                                    init_params, sample_noise)
 from spair_pytorch_tpu_torch.models.spair import forward
+from spair_pytorch_tpu_torch.parallel.mesh import (Mesh, all_reduce_,
+                                                   reduce_metrics)
 from spair_pytorch_tpu_torch.utils.debug import grad_norms_by_head
 
 
@@ -69,15 +82,30 @@ def clip_by_global_norm_(grads, norm, max_norm: float):
 
 
 def train_step(cfg: SpairConfig, state: TrainState, x, gt_bbox=None,
-               gt_count=None, noise=None) -> Dict[str, torch.Tensor]:
+               gt_count=None, noise=None,
+               mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One step on images x (B, C, H, W): forward with the state's
     generator (or the given ``noise``), backward, Adam. Updates ``state``
     in place; returns the metric dict of the JAX step: the loss terms,
     ``training_wheel``, the presence-count and gradient-norm diagnostics,
-    and with ``gt_bbox``/``gt_count`` the four ``accuracy/*`` tags."""
+    and with ``gt_bbox``/``gt_count`` the four ``accuracy/*`` tags.
+
+    With ``mesh``, x is this rank's slice of the global batch and
+    ``noise``, when given, its slice of the global noise; the metrics come
+    back reduced over the ranks."""
     model, opt = state.model, state.optimizer
+    batch_share = 1.0
+    if mesh is not None:
+        global_b = x.shape[0] * mesh.world_size
+        batch_share = x.shape[0] / global_b
+        if noise is None:
+            start, stop = mesh.slice(global_b)
+            full = sample_noise(state.generator, global_b, geometry(cfg)[1],
+                                cfg, x.device)
+            noise = {k: v[start:stop] for k, v in full.items()}
     opt.zero_grad(set_to_none=False)
-    loss, aux = forward(model, cfg, x, state.step, state.generator, noise)
+    loss, aux = forward(model, cfg, x, state.step, state.generator, noise,
+                        batch_share=batch_share)
     loss.backward()
     # a parameter the loss does not reach has a zero gradient, as in JAX:
     # Adam still decays its moments
@@ -86,6 +114,8 @@ def train_step(cfg: SpairConfig, state: TrainState, x, gt_bbox=None,
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
+    if mesh is not None:
+        all_reduce_(grads)
 
     out = dict(aux["losses"])
     out["training_wheel"] = aux["training_wheel"]
@@ -109,23 +139,28 @@ def train_step(cfg: SpairConfig, state: TrainState, x, gt_bbox=None,
                 z_where, z_pres, gt_bbox, gt_count, size)
         if cfg.grad_clip_norm and cfg.grad_clip_norm > 0:
             clip_by_global_norm_(grads, norm, cfg.grad_clip_norm)
+        if mesh is not None:
+            out = reduce_metrics(mesh, out)
     opt.step()
     state.step += 1
     return {k: v.detach() for k, v in out.items()}
 
 
-def make_train_step(cfg: SpairConfig, with_detection: bool = False,
-                    datagen=None, steps_per_call: int = 1):
+def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
+                    with_detection: bool = False, datagen=None,
+                    steps_per_call: int = 1):
     """Returns step(state[, batch]) -> (state, metrics).
 
     ``batch`` is the image tensor, or (x, gt_bbox, gt_count) with
     ``with_detection``, which adds the detection metrics of the training
-    forward's own latents. With ``datagen`` = (DataConfig, bank) the step
-    takes no batch: it draws its scenes on the device from the state's
-    generator (``data.generate_batch``, cfg.batch_size images) and logs the
-    detection metrics against them. ``steps_per_call`` = K (datagen only)
-    runs K steps per call, with the metrics stacked on a leading (K,) axis;
-    it equals K calls of one step."""
+    forward's own latents; with ``mesh``, this rank's slice of the global
+    batch (``parallel.mesh.shard_batch``). With ``datagen`` = (DataConfig, bank) the
+    step takes no batch: it draws its scenes on the device from the state's
+    generator (``data.generate_batch``, cfg.batch_size images; with
+    ``mesh`` this rank's slice of them, ``data.sharded.generate_host_local``)
+    and logs the detection metrics against them. ``steps_per_call`` = K
+    (datagen only) runs K steps per call, with the metrics stacked on a
+    leading (K,) axis; it equals K calls of one step."""
     if steps_per_call > 1 and datagen is None:
         raise ValueError("steps_per_call > 1 needs datagen")
 
@@ -133,9 +168,14 @@ def make_train_step(cfg: SpairConfig, with_detection: bool = False,
         dcfg, bank = datagen
 
         def one_step(state):
-            x, gt_bbox, gt_count = generate_batch(
-                state.generator, bank, cfg.batch_size, dcfg)
-            return train_step(cfg, state, x, gt_bbox, gt_count)
+            if mesh is None:
+                x, gt_bbox, gt_count = generate_batch(
+                    state.generator, bank, cfg.batch_size, dcfg)
+            else:
+                x, gt_bbox, gt_count = generate_host_local(
+                    state.generator, bank, dcfg, cfg.batch_size,
+                    mesh.world_size, mesh.rank)
+            return train_step(cfg, state, x, gt_bbox, gt_count, mesh=mesh)
 
         def step_fn(state):
             if steps_per_call == 1:
@@ -145,10 +185,11 @@ def make_train_step(cfg: SpairConfig, with_detection: bool = False,
     elif with_detection:
         def step_fn(state, batch):
             x, gt_bbox, gt_count = batch
-            return state, train_step(cfg, state, x, gt_bbox, gt_count)
+            return state, train_step(cfg, state, x, gt_bbox, gt_count,
+                                     mesh=mesh)
     else:
         def step_fn(state, x):
-            return state, train_step(cfg, state, x)
+            return state, train_step(cfg, state, x, mesh=mesh)
     return step_fn
 
 

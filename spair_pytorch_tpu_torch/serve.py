@@ -11,9 +11,11 @@ through ``models.infer.detect``, thresholded and unpadded per request:
     dets[i]["count"]   # int
 
 CLI (the checkpoint under --logdir, else fresh seeded params; requests
-from the font glyph bank):
+from the font glyph bank; ``--quantize int8`` serves int8 weights and
+activations, ``ops/quant.py``):
     python -m spair_pytorch_tpu_torch.serve --requests 64 --batch 32
     python -m spair_pytorch_tpu_torch.serve --logdir runs/paper128
+    python -m spair_pytorch_tpu_torch.serve --quantize int8 --batch 32
 """
 
 from __future__ import annotations
@@ -136,6 +138,10 @@ def main(argv=None):
                    help="run directory to serve: its latest checkpoint "
                         "(default: fresh params) and the operating point "
                         "in its calibration.json")
+    p.add_argument("--quantize", default=None, choices=[None, "int8"],
+                   help="post-training int8 quantization of every MLP and "
+                        "backbone layer (ops/quant.py): int8 products with "
+                        "int32 accumulation")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -153,6 +159,9 @@ def main(argv=None):
         if state is None:
             raise SystemExit(f"no checkpoint under {args.logdir}")
     params = state.model
+    if args.quantize == "int8":
+        from spair_pytorch_tpu_torch.ops.quant import quantize_params_int8
+        params = quantize_params_int8(params)
     threshold = resolve_threshold(args.threshold, args.logdir)
     nms_iou = resolve_nms(args.nms, args.logdir)
     print(f"presence threshold {threshold}, nms {nms_iou}")
@@ -176,7 +185,8 @@ def main(argv=None):
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"served {args.requests} requests in {dt * 1e3:.1f} ms "
-          f"({args.requests / dt:.0f} img/s, bucket {args.batch}, {name})")
+          f"({args.requests / dt:.0f} img/s, bucket {args.batch}, "
+          f"{args.quantize or 'float'} weights, {name})")
     print(f"count accuracy vs generator labels: "
           f"{float((pred == true).mean()):.3f}")
     return dets

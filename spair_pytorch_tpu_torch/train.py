@@ -5,13 +5,25 @@ The run-dir layout, cadences and scalar tags of the JAX package's loop:
 imports) under the reference's tag names, checkpoints every
 ``checkpoint_every`` steps with resume from the latest, held-out evaluation
 every ``eval_every`` steps, and a calibrated detector operating point at the
-end on request. Scenes are generated on the device from the train state's
-generator, ``steps_per_call`` steps per call; metrics stay on the device
-and reach the host ``log_flush_every`` steps at a time.
+end on request. By default scenes are generated on the device from the
+train state's generator, ``steps_per_call`` steps per call; metrics stay on
+the device and reach the host ``log_flush_every`` steps at a time.
+
+As in the JAX package, ``--data native`` (the C++ generator, ``data/
+native.py``) and ``--hdf5`` (a reference-schema file, ``data/
+scattered_mnist.py::ScatteredMNISTFile``; needs h5py) feed the step from
+the host, one step per call, and the held-out evaluation reads the same
+source. ``--mesh`` trains data parallel over the world the environment
+describes (``parallel/mesh.py``; ``torchrun`` for more than one rank):
+every rank trains on its slice of the global batch, rank 0 alone writes
+logs, checkpoints and evaluations, and the logged scalars are reduced over
+the ranks.
 
 Usage, on a machine with a CUDA card:
     python -m spair_pytorch_tpu_torch.train --preset paper128 --steps 2000 \
         --logdir runs/paper128
+    python -m spair_pytorch_tpu_torch.train --data native --steps 2000
+    torchrun --nproc-per-node 4 -m spair_pytorch_tpu_torch.train --mesh
 
 The ``'pallas_v3'`` compositor (K3/K4) is reached through the config, as in
 the JAX package: ``train(PRESETS['paper128'](render_backend='pallas_v3'))``.
@@ -35,17 +47,16 @@ from spair_pytorch_tpu_torch.config import (COUNT_PRIOR, PRESETS,
                                             SpairConfig, config_to_json,
                                             free_box_priors)
 from spair_pytorch_tpu_torch.data import (DataConfig, OnDeviceScatteredDigits,
-                                          digit_bank, resolve_source)
+                                          ScatteredMNISTFile, digit_bank,
+                                          resolve_source)
+from spair_pytorch_tpu_torch.data.native import NativeScatteredDigits
 from spair_pytorch_tpu_torch.eval import calibrate, evaluate
+from spair_pytorch_tpu_torch.parallel.mesh import (make_mesh, replicate,
+                                                   shard_batch)
 from spair_pytorch_tpu_torch.parallel.train_step import (create_train_state,
                                                          make_train_step)
 from spair_pytorch_tpu_torch.utils.checkpoint import CheckpointManager
 from spair_pytorch_tpu_torch.utils.logging import MetricWriter
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1: "
-                              f"{item})")
 
 
 def data_config(cfg: SpairConfig, max_objects: Optional[int] = None):
@@ -58,18 +69,35 @@ def data_config(cfg: SpairConfig, max_objects: Optional[int] = None):
                       channels=cfg.n_channels)
 
 
+def _file_batches(path: str, batch_size: int, device):
+    """Endless epochs of a reference-schema HDF5 file's batches, as tensors
+    on ``device``."""
+    file = ScatteredMNISTFile(path)
+    try:
+        while True:
+            for batch in file.batches(batch_size):
+                yield tuple(torch.from_numpy(a).to(device) for a in batch)
+    finally:
+        file.close()
+
+
 def make_data(cfg: SpairConfig, hdf5: Optional[str] = None,
               max_objects: Optional[int] = None, seed: int = 0,
               source: str = "device", digits: str = "auto", device="cuda"):
-    """An iterator of (image, bbox, count) batches of cfg.batch_size scenes,
-    generated on ``device`` from ``seed``."""
+    """An iterator of (image, bbox, count) batches of cfg.batch_size scenes
+    on ``device``: read from the HDF5 file ``hdf5`` when given, else
+    generated from ``seed`` on the device (``source='device'``) or by the
+    C++ generator on the host (``source='native'``)."""
     if hdf5:
-        _not_ported("reading an HDF5 dataset", "HDF5/native data")
-    if source != "device":
-        _not_ported(f"data source {source!r}", "HDF5/native data")
+        return _file_batches(hdf5, cfg.batch_size, device)
     dcfg = data_config(cfg, max_objects)
-    return OnDeviceScatteredDigits(dcfg, cfg.batch_size,
-                                   bank=digit_bank(digits, dcfg.patch_hw),
+    bank = digit_bank(digits, dcfg.patch_hw)
+    if source == "native":
+        return NativeScatteredDigits(dcfg, cfg.batch_size, bank=bank,
+                                     seed=seed, device=device)
+    if source != "device":
+        raise ValueError(f"unknown data source {source!r}")
+    return OnDeviceScatteredDigits(dcfg, cfg.batch_size, bank=bank,
                                    seed=seed, device=device)
 
 
@@ -112,53 +140,81 @@ def train(cfg: SpairConfig,
           calibrate_at_end: bool = False,
           device="cuda"):
     """Train ``cfg`` for ``steps`` steps on ``device``; returns the final
-    TrainState. Arguments as the JAX package's ``train``; the data is
-    always generated on the device."""
-    if hdf5:
-        _not_ported("training from an HDF5 dataset", "HDF5/native data")
-    if data_source != "device":
-        _not_ported(f"data source {data_source!r}", "HDF5/native data")
-    if use_mesh:
-        _not_ported("data-parallel training (use_mesh)", "data parallelism")
+    TrainState. Arguments as the JAX package's ``train``. With
+    ``use_mesh`` the process joins the data-parallel world of
+    ``parallel/mesh.py::make_mesh`` (and ends it on return if it started
+    it); ``device`` then names the device type, each rank computing on its
+    own device."""
     if log_images_every or log_figures_every:
-        _not_ported("image and figure logging", "utils/viz.py")
-    spc = max(1, steps_per_call)
+        raise NotImplementedError("image and figure logging is not ported "
+                                  "yet (ROADMAP queue 1: utils/viz.py)")
+    mesh = make_mesh(device) if use_mesh else None
+    try:
+        return _train(cfg, steps, logdir, hdf5, data_source, mesh,
+                      checkpoint_every, metrics_every, log_flush_every,
+                      halt_on_nan, resume, verbose, digits, eval_every,
+                      eval_batches, steps_per_call, calibrate_at_end,
+                      mesh.device if mesh is not None else device)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _train(cfg, steps, logdir, hdf5, data_source, mesh, checkpoint_every,
+           metrics_every, log_flush_every, halt_on_nan, resume, verbose,
+           digits, eval_every, eval_batches, steps_per_call,
+           calibrate_at_end, device):
+    # data generated on the device runs steps_per_call steps a call; the
+    # host sources (HDF5, native) one, as in the JAX package
+    fused = hdf5 is None and data_source == "device"
+    spc = max(1, steps_per_call) if fused else 1
     if spc > 1:
         # a mid-window cadence hit would label the end-of-window state with
         # a step that is not round (breaking `eval --step N`)
         for nm, every in (("checkpoint_every", checkpoint_every),
-                          ("eval_every", eval_every),
-                          ("log_images_every", log_images_every),
-                          ("log_figures_every", log_figures_every)):
+                          ("eval_every", eval_every)):
             if every and every % spc != 0:
                 raise ValueError(
                     f"{nm}={every} must be a multiple of "
                     f"steps_per_call={spc} (cadence hits must land on "
                     "dispatch boundaries)")
+    main_rank = mesh is None or mesh.is_main
+    verbose = verbose and main_rank
     if logdir is None:
         logdir = _run_dir()
 
-    writer = MetricWriter(logdir)
-    # the exact config, so eval can rebuild the run (eval.py prefers it)
-    with open(os.path.join(logdir, "config.json"), "w") as f:
-        f.write(config_to_json(cfg))
+    writer = None
+    if main_rank:
+        writer = MetricWriter(logdir)
+        # the exact config, so eval can rebuild the run (eval.py prefers it)
+        with open(os.path.join(logdir, "config.json"), "w") as f:
+            f.write(config_to_json(cfg))
 
     state = create_train_state(cfg, device=device)
     ckpt = None
-    if checkpoint_every:
+    if checkpoint_every and main_rank:
         ckpt = CheckpointManager(os.path.join(logdir, "checkpoints"))
         restored = ckpt.restore(state) if resume else None
         if restored is not None:
             state = restored
             if verbose:
                 print(f"resumed from step {int(state.step)}")
+    if mesh is not None:
+        state = replicate(mesh, state)
 
-    dcfg = data_config(cfg)
-    src = resolve_source(digits)
-    if verbose:
-        print(f"digit source: {src}")
-    bank = torch.as_tensor(digit_bank(src, dcfg.patch_hw), device=device)
-    step_fn = make_train_step(cfg, datagen=(dcfg, bank), steps_per_call=spc)
+    if fused:
+        dcfg = data_config(cfg)
+        src = resolve_source(digits)
+        if verbose:
+            print(f"digit source: {src}")
+        bank = torch.as_tensor(digit_bank(src, dcfg.patch_hw), device=device)
+        step_fn = make_train_step(cfg, mesh, datagen=(dcfg, bank),
+                                  steps_per_call=spc)
+        data = None
+    else:
+        step_fn = make_train_step(cfg, mesh, with_detection=True)
+        data = make_data(cfg, hdf5, source=data_source, digits=digits,
+                         device=device)
     rem_step_fn = None  # built for a last window shorter than spc
     eval_set = None
     last_loss = float("nan")
@@ -170,7 +226,8 @@ def train(cfg: SpairConfig,
         if not (metrics_every and pit > 1000 and pit % metrics_every == 0):
             pvals = {k: v for k, v in pvals.items()
                      if not k.startswith("accuracy/")}
-        writer.scalars(pit, pvals)
+        if writer is not None:
+            writer.scalars(pit, pvals)
         if "losses/total" in pvals:
             last_loss = float(pvals["losses/total"])
 
@@ -195,10 +252,16 @@ def train(cfg: SpairConfig,
     it = int(state.step)  # host-side mirror of the step
     done = 0
     while done < steps:
-        if steps - done < spc:
+        if not fused:
+            batch = next(data)
+            if mesh is not None:
+                batch = shard_batch(mesh, batch)
+            n_sub = 1
+            state, scalars = step_fn(state, batch)
+        elif steps - done < spc:
             # the last window: exactly the steps asked for
             if rem_step_fn is None:
-                rem_step_fn = make_train_step(cfg, datagen=(dcfg, bank),
+                rem_step_fn = make_train_step(cfg, mesh, datagen=(dcfg, bank),
                                               steps_per_call=steps - done)
             n_sub = steps - done
             state, scalars = rem_step_fn(state)
@@ -211,8 +274,10 @@ def train(cfg: SpairConfig,
             flush()
             if halt_on_nan and not np.isfinite(last_loss):
                 # the last checkpoint predates the NaN: resume from there
-                print(f"NaN loss at step ~{it}; halting "
-                      f"(resume from {logdir}/checkpoints)")
+                # (every rank reads the same reduced loss and stops)
+                if verbose:
+                    print(f"NaN loss at step ~{it}; halting "
+                          f"(resume from {logdir}/checkpoints)")
                 break
 
         def window_hits(every, offset=0):
@@ -221,10 +286,12 @@ def train(cfg: SpairConfig,
                 (j + offset) % every == 0 for j in range(it, it + n_sub))
 
         # held-out evaluation on a fixed set of scenes from a seed disjoint
-        # from the training stream, logged under eval/*
-        if window_hits(eval_every, offset=1):
+        # from the training stream, from the training data's source, logged
+        # under eval/* (by rank 0)
+        if main_rank and window_hits(eval_every, offset=1):
             if eval_set is None:
-                gen = make_data(cfg, seed=99999, digits=digits, device=device)
+                gen = make_data(cfg, hdf5, seed=99999, source=data_source,
+                                digits=digits, device=device)
                 eval_set = [next(gen) for _ in range(eval_batches)]
             held, _, _ = evaluate(cfg, state, batches=len(eval_set),
                                   data=eval_set)
@@ -254,7 +321,7 @@ def train(cfg: SpairConfig,
         ckpt.save(state)
         ckpt.wait()
     calibration_error = None
-    if calibrate_at_end:
+    if calibrate_at_end and main_rank:
         # leave the run serving-ready: the detector's operating point from
         # held-out scenes, next to the checkpoints (serve.py reads it). A
         # failure here must not take the run with it: the checkpoints and
@@ -275,7 +342,8 @@ def train(cfg: SpairConfig,
                   f"checkpoints and metrics are intact under {logdir} - "
                   f"rerun via: python -m spair_pytorch_tpu_torch.eval "
                   f"--logdir {logdir} --calibrate")
-    writer.close()
+    if writer is not None:
+        writer.close()
     if calibration_error is not None:
         raise SystemExit(f"calibrate-at-end failed: {calibration_error!r} "
                          f"(training artifacts under {logdir} are complete)")
@@ -288,12 +356,12 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=10000)
     p.add_argument("--logdir", default=None)
     p.add_argument("--hdf5", default=None,
-                   help="reference-schema scattered-MNIST file (not ported)")
+                   help="reference-schema scattered-MNIST file (needs h5py)")
     p.add_argument("--mesh", action="store_true",
-                   help="data-parallel over all visible devices (not ported)")
+                   help="data parallel over the ranks the environment "
+                        "describes (torchrun; one rank without it)")
     p.add_argument("--data", default="device", choices=["device", "native"],
-                   help="on-device generator or native C++ pipeline (only "
-                        "'device' is ported)")
+                   help="on-device generator or native C++ pipeline")
     p.add_argument("--digits", default="auto",
                    choices=["auto", "mnist", "sklearn", "font"],
                    help="digit patch source: local MNIST idx files, "

@@ -585,3 +585,76 @@ def test_reference_topk_through_the_kernels(cuda, monkeypatch, live):
     for g, w in zip(got[1:], want[1:]):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    rtol=5e-4, atol=1e-5)
+
+
+# every int8 product of the paper128 detector, (rows, inner, out): the
+# wavefront's 6-lane fronts at serve batches 1 and 32 (6 rows are padded to
+# 17; inner widths 324, 478, 479 to multiples of 8; outputs 1, 2, 100 to
+# multiples of 8) and the backbone's convs as products of their patches
+INT8_SHAPES = sorted(
+    {(m, k, n) for m in (6, 192)
+     for k, n in ((100, 1), (100, 2), (100, 8), (100, 100), (128, 100),
+                  (256, 128), (324, 100), (478, 100), (479, 100),
+                  (784, 256))}
+    | {(121, 128, 100), (121, 128, 128), (121, 2048, 128), (576, 2048, 128),
+       (2500, 16, 128), (3872, 128, 100), (3872, 128, 128),
+       (3872, 2048, 128), (18432, 2048, 128), (80000, 16, 128)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int_mm_equals_the_exact_product(cuda, m, k, n):
+    from spair_pytorch_tpu_torch.ops import quant
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    got = quant.int_mm(a, w)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    assert torch.equal(got, quant.int_mm_plain(a, w.t()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 32])
+def test_quantized_detector_products_are_exact(cuda, monkeypatch, b):
+    """Every product the int8 paper128 detector computes, held to the
+    exact product on its own operands; the detector's shapes are the
+    list above."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.models import init_params
+    from spair_pytorch_tpu_torch.models.infer import make_detector
+    from spair_pytorch_tpu_torch.ops import quant
+    cfg = PRESETS["paper128"]()
+    model = quant.quantize_params_int8(init_params(cfg, device=cuda))
+    seen = {}
+    launch = quant.int_mm
+
+    def record(a, w):
+        out = launch(a, w)
+        key = (a.shape[0], a.shape[1], w.shape[0])
+        if key not in seen:
+            seen[key] = torch.equal(out, quant.int_mm_plain(a, w.t()))
+        return out
+
+    monkeypatch.setattr(quant, "int_mm", record)
+    x = torch.rand(b, 1, 128, 128, device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(b))
+    out = make_detector(cfg)(model, x)
+    assert bool(torch.isfinite(out["scores"]).all())
+    assert seen and all(seen.values()), seen
+    assert set(seen) <= set(INT8_SHAPES), sorted(set(seen) - set(INT8_SHAPES))
+
+
+@pytest.mark.gpu
+def test_native_batch_reaches_the_card_equal_to_the_host_batch(cuda):
+    from spair_pytorch_tpu_torch.data import DataConfig
+    from spair_pytorch_tpu_torch.data.native import NativeScatteredDigits
+    dcfg = DataConfig(image_hw=(128, 128), max_objects=6)
+    on_card = NativeScatteredDigits(dcfg, 128, seed=3, device=cuda)
+    on_host = NativeScatteredDigits(dcfg, 128, seed=3, device="cpu")
+    for _ in range(3):
+        got, want = next(on_card), next(on_host)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g.cpu(), w)

@@ -1,0 +1,152 @@
+"""The port's data parallelism (parallel/mesh.py, data/sharded.py) on the
+CPU with gloo: the rank slices against the JAX package's, scene content
+independent of the world size, a world of one equal to the plain step bit
+for bit, and a 2-process step equal to the 1-process step within 1e-5
+relative (the ranks' slices reduce in another order than one batch does)."""
+
+import os
+import socket
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from spair_pytorch_tpu.data import sharded as jsharded
+from spair_pytorch_tpu_torch.data import generate_batch, glyph_bank
+from spair_pytorch_tpu_torch.data.sharded import (generate_host_local,
+                                                  host_slice)
+from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                              make_train_step)
+from spair_pytorch_tpu_torch.parallel.mesh import (make_mesh, replicate,
+                                                   shard_batch)
+from spair_pytorch_tpu_torch.train import data_config
+from tests.test_model import tiny_config
+from tests.test_torch_ops import tcfg
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = tcfg(tiny_config(batch_size=4, inference_mode="wavefront",
+                       pres_gate_threshold=0.01))
+REL = 1e-5
+
+
+@pytest.mark.parametrize("global_batch,world", [(8, 1), (8, 2), (12, 3),
+                                                (128, 4)])
+def test_host_slice_matches_jax(global_batch, world):
+    for rank in range(world):
+        assert host_slice(global_batch, world, rank) == \
+            jsharded.host_slice(global_batch, world, rank)
+
+
+def test_host_slice_refuses_an_uneven_batch():
+    with pytest.raises(ValueError):
+        host_slice(10, 4, 0)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_content_does_not_depend_on_the_world_size(world):
+    dcfg = data_config(CFG)
+    bank = torch.as_tensor(glyph_bank(dcfg.patch_hw))
+    want = generate_batch(torch.Generator().manual_seed(3), bank, 8, dcfg)
+    parts = [generate_host_local(torch.Generator().manual_seed(3), bank,
+                                 dcfg, 8, world, rank)
+             for rank in range(world)]
+    for got, ref in zip(zip(*parts), want):
+        assert torch.equal(torch.cat(got), ref)
+
+
+def plain_step():
+    state = create_train_state(CFG, device="cpu")
+    dcfg = data_config(CFG)
+    bank = torch.as_tensor(glyph_bank(dcfg.patch_hw))
+    state, metrics = make_train_step(CFG, datagen=(dcfg, bank))(state)
+    return state, metrics
+
+
+def test_world_of_one_equals_the_plain_step_bit_for_bit(monkeypatch):
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    want, want_m = plain_step()
+    mesh = make_mesh("cpu")
+    try:
+        assert (mesh.world_size, mesh.rank) == (1, 0)
+        state = replicate(mesh, create_train_state(CFG, device="cpu"))
+        dcfg = data_config(CFG)
+        bank = torch.as_tensor(glyph_bank(dcfg.patch_hw))
+        state, metrics = make_train_step(CFG, mesh,
+                                         datagen=(dcfg, bank))(state)
+        batch = tuple(torch.arange(8.0).reshape(4, 2) for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(shard_batch(mesh, batch),
+                                                     batch))
+    finally:
+        mesh.close()
+    for p, q in zip(state.model.parameters(), want.model.parameters()):
+        assert torch.equal(p, q)
+    assert set(metrics) == set(want_m)
+    for k in want_m:
+        assert torch.equal(metrics[k], want_m[k]), k
+    assert torch.equal(state.generator.get_state(),
+                       want.generator.get_state())
+
+
+WORKER = """
+import sys, torch
+torch.set_num_threads(2)
+from spair_pytorch_tpu_torch.config import config_from_json
+from spair_pytorch_tpu_torch.data import glyph_bank
+from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                              make_train_step)
+from spair_pytorch_tpu_torch.parallel.mesh import make_mesh, replicate
+from spair_pytorch_tpu_torch.train import data_config
+cfg = config_from_json(sys.argv[1])
+mesh = make_mesh("cpu")
+try:
+    state = replicate(mesh, create_train_state(cfg, device="cpu"))
+    dcfg = data_config(cfg)
+    bank = torch.as_tensor(glyph_bank(dcfg.patch_hw))
+    state, metrics = make_train_step(cfg, mesh, datagen=(dcfg, bank))(state)
+    torch.save({"params": [p.detach() for p in state.model.parameters()],
+                "grads": [p.grad for p in state.model.parameters()],
+                "metrics": metrics}, sys.argv[2])
+finally:
+    mesh.close()
+"""
+
+
+def test_two_process_step_equals_the_one_process_step(tmp_path):
+    """Two gloo ranks of 2 scenes each against one process of 4: the
+    summed gradients, the parameters after Adam and the reduced metrics."""
+    from spair_pytorch_tpu_torch.config import config_to_json
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS="2")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", WORKER, config_to_json(CFG),
+             str(tmp_path / f"rank{rank}.pt")], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for proc in procs:
+        _, err = proc.communicate(timeout=120)
+        assert proc.returncode == 0, err
+    want, want_m = plain_step()
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    grads = [p.grad for p in want.model.parameters()]
+    params = list(want.model.parameters())
+    for got in ranks:
+        for name, got_t, want_t in (("grads", got["grads"], grads),
+                                    ("params", got["params"], params)):
+            for g, w in zip(got_t, want_t):
+                w = w.detach()
+                scale = max(float(w.abs().max()), 1e-30)
+                err = float((g - w).abs().max()) / scale
+                assert err < REL, (name, err)
+        for k, v in want_m.items():
+            err = abs(float(got["metrics"][k]) - float(v)) / max(
+                abs(float(v)), 1e-6)
+            assert err < REL, (k, float(got["metrics"][k]), float(v))
+    for a, b in zip(ranks[0]["params"], ranks[1]["params"]):
+        assert torch.equal(a, b)
