@@ -3,9 +3,10 @@
 
 Drives the port's serving path, its training step, its training entry
 point through the banded compositor ('pallas_v3') at paper128 width, the
-model options of three more presets, and the host data inputs, int8
-serving, data-parallel training (world size 1) and the tools, on one CUDA
-card, with random weights from the preset's seed:
+model options of three more presets, the host data inputs, int8 serving,
+data-parallel training (world size 1) and the tools, and split refinement
+and the figure path, on one CUDA card, with random weights from the
+preset's seed:
 
   1. device     the card's name and power limit (nvidia-smi);
   2. build      compiles csrc/composite_fwd.cu (K1, and K3 as its banded
@@ -98,11 +99,34 @@ card, with random weights from the preset's seed:
                 profile.py over 3 steps (its trace names K1 and K2) and an
                 export.py round trip of the mesh run's parameters, bit for
                 bit.
+ 15. refine and figures
+                split refinement and the figure path at paper128 width:
+                (a) the detector (wavefront, f32, NMS 0.5) and make_refiner
+                (top_m=12, window_px=32) at B=32 and B=128: K1's two
+                launches a call (B*M parents of one object and B*M*6
+                candidates of two, on 32x32 windows) each against the plain
+                compositor on its inputs, the whole split_gains dict
+                through K1 against the plain compositor's, margin +inf
+                (detections unchanged) and -inf with max_neighbor_iou 1
+                (count = live + live in the top M), the refiner's ms/call
+                beside the detector's in turns, and both launches' times
+                beside their plain versions and bounds; (b)
+                generative_grad_views at B=32 on an eval forward's latents,
+                K1/K2 ungated, against autograd through the plain
+                compositor (each view at the gradient bar), and K1/K2 timed
+                on its inputs; (c) 10 train() steps of the main path with
+                the input|output images every 5 steps, K1/K2 launches and
+                ms/step. The card's machine has no matplotlib, so the
+                figures themselves are drawn only by the CPU tests
+                (tests/test_torch_viz.py); this phase computes everything
+                they plot.
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
 cuDNN convs in full f32), so kernels and plain versions are compared on the
 same arithmetic. The last two lines are a JSON summary of the kernels and
-the result line {"ok": true, "device": {...}}.
+the result line {"ok": true, "device": {...}}. A kernel's "launches" there
+are its own path's, K1/K2 from phase 9 and K3/K4 from phase 12, and its
+"path_launches" those of phase 15's paths, each read from its own run.
 
     python3 chip_smoke.py              # on a machine with a CUDA card
 """
@@ -706,23 +730,24 @@ def v3_phase(V, K, dev):
     return max(errs3), max(errs4)
 
 
-def bound(b, c, glimpse_bytes, forward, pairs, live=None):
+def bound(b, c, glimpse_bytes, forward, pairs, live=None, n=N,
+          glimpse=(OH, OW), canvas_hw=HW):
     """(least ms, 'bytes' or 'operations', bytes moved) for one compositor
-    call: each input read once and each output written once, against the
-    card's HBM rate; and an estimate of the gather's arithmetic (per object
-    and support pixel, (C + 2) bilinear samples of 9 operations and ~3C + 2
-    more; four times that in the backward) against the f32 peak. ``live``
-    objects (default all b * N) have glimpses to read; the backward writes
-    every object's gradient."""
-    per_object = (c + 2) * OH * OW * glimpse_bytes
-    read = (b * N if live is None else live) * per_object
-    canvas = b * (c + 1) * HW[0] * HW[1] * 4
-    boxes = b * N * 4 * 4
+    call of b scenes of n objects: each input read once and each output
+    written once, against the card's HBM rate; and an estimate of the
+    gather's arithmetic (per object and support pixel, (C + 2) bilinear
+    samples of 9 operations and ~3C + 2 more; four times that in the
+    backward) against the f32 peak. ``live`` objects (default all b * n)
+    have glimpses to read; the backward writes every object's gradient."""
+    per_object = (c + 2) * glimpse[0] * glimpse[1] * glimpse_bytes
+    read = (b * n if live is None else live) * per_object
+    canvas = b * (c + 1) * canvas_hw[0] * canvas_hw[1] * 4
+    boxes = b * n * 4 * 4
     if forward:
         moved = read + boxes + canvas
         ops = pairs * (9 * (c + 2) + 3 * c + 2)
     else:  # glimpses, boxes, dnum, dden in; dG, dbox out
-        moved = read + b * N * per_object + 2 * boxes + canvas
+        moved = read + b * n * per_object + 2 * boxes + canvas
         ops = 4 * pairs * (9 * (c + 2) + 3 * c + 2)
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -731,19 +756,21 @@ def bound(b, c, glimpse_bytes, forward, pairs, live=None):
     return t_ops, "operations", moved
 
 
-def support_pairs(boxes, band_rows=None, gate=None):
+def support_pairs(boxes, band_rows=None, gate=None, glimpse=(OH, OW),
+                  canvas_hw=HW):
     """Canvas pixels inside each object's paste support (sy in (-1, oh),
     sx in (-1, ow)), summed over the objects; with ``band_rows`` (N, H)
     only the rows of each object's band count, with ``gate`` (B, N) only
     the objects whose gate is nonzero."""
     from spair_pytorch_tpu_torch.ops.stn import _source_coords_paste
+    oh, ow = glimpse
     xt, yt, xs, ys = boxes.unbind(-1)
-    sy = _source_coords_paste(yt, ys, HW[0], OH)
-    sx = _source_coords_paste(xt, xs, HW[1], OW)
-    rows = ((sy > -1) & (sy < OH)).float()
+    sy = _source_coords_paste(yt, ys, canvas_hw[0], oh)
+    sx = _source_coords_paste(xt, xs, canvas_hw[1], ow)
+    rows = ((sy > -1) & (sy < oh)).float()
     if band_rows is not None:
         rows = rows * band_rows
-    cols = ((sx > -1) & (sx < OW)).float()
+    cols = ((sx > -1) & (sx < ow)).float()
     per_object = rows.sum(-1) * cols.sum(-1)
     if gate is not None:
         per_object = per_object * (gate != 0)
@@ -1543,6 +1570,220 @@ def tools_phase(state, dev):
         raise AssertionError(f"the trace lacks a kernel: {kernels}")
 
 
+# phase 15: split refinement and the figure path, at paper128 width
+REFINE_M, REFINE_WIN = 12, 32
+
+
+def refine_phase(K, card, dev):
+    """Phase 15(a): the paper128 detector (wavefront, f32, NMS 0.5) and
+    ``make_refiner(cfg, top_m=12, window_px=32)`` at B=32 and B=128.
+    Returns the K1 launches of one refiner call at each batch, each read
+    from its own run with the count set to 0 just before it."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.data import generate_batch, glyph_bank
+    from spair_pytorch_tpu_torch.models import init_params, refine, render
+    from spair_pytorch_tpu_torch.models.infer import make_detector
+    from spair_pytorch_tpu_torch.train import data_config
+
+    cfg = PRESETS["paper128"]()
+    plain_cfg = dataclasses.replace(cfg, render_backend="xla")
+    params = init_params(cfg, device=dev)
+    dcfg = data_config(cfg)
+    bank = torch.as_tensor(glyph_bank(dcfg.patch_hw), device=dev)
+    detect = make_detector(cfg, nms_iou=0.5)
+    knobs = dict(top_m=REFINE_M, window_px=REFINE_WIN)
+    refiner = refine.make_refiner(cfg, **knobs)
+    wins = (REFINE_WIN, REFINE_WIN)
+    launches = {}
+    for b in (32, 128):
+        x = generate_batch(torch.Generator(device=dev).manual_seed(15 + b),
+                           bank, b, dcfg)[0]
+        det = detect(params, x)
+        K.composite_forward.launches = 0
+        out = refiner(params, x, det, 0.0, 0.5)
+        torch.cuda.synchronize()
+        n_launch = launches[b] = K.composite_forward.launches
+        n = det["scores"].shape[1]
+        if n_launch != 2 or tuple(out["boxes"].shape) != (b, n + REFINE_M, 4) \
+                or not bool(torch.isfinite(out["boxes"]).all()):
+            raise AssertionError(f"refine B={b}: {n_launch} K1 launches, "
+                                 f"boxes {tuple(out['boxes'].shape)}")
+
+        # each K1 launch against the plain compositor on its own inputs
+        calls, launch = [], render.composite_forward
+
+        def record(*a, **kw):
+            got = launch(*a, **kw)
+            calls.append((a, got))
+            return got
+        render.composite_forward = record
+        try:
+            gains = refine.split_gains(params, cfg, x, det["boxes"],
+                                       det["scores"], **knobs)
+        finally:
+            render.composite_forward = launch
+        for (a, got), what in zip(calls, ("parents", "candidates")):
+            check("refine", f"K1 {what} B={b}: {a[0].shape[0]} scenes of "
+                            f"{a[0].shape[1]} on {REFINE_WIN}x{REFINE_WIN}",
+                  F32_BAR, got, K.composite_plain(*a, chunk=a[0].shape[1]))
+        # the whole gains dict through K1 against the plain compositor's
+        want = refine.split_gains(params, plain_cfg, x, det["boxes"],
+                                  det["scores"], **knobs)
+        if not torch.equal(gains["idx"], want["idx"]):
+            raise AssertionError(f"refine B={b}: top-M indices differ")
+        keys = [k for k in sorted(gains) if k != "idx"]
+        check("refine", f"split_gains B={b} through K1 against the plain "
+                        f"compositor (idx equal)", F32_BAR,
+              [gains[k] for k in keys], [want[k] for k in keys], keys)
+
+        # margin +inf leaves the detections; -inf with the guard open
+        # splits every live detection of the top M
+        same = refiner(params, x, det, math.inf, 0.5)
+        opened = refine.make_refiner(cfg, max_neighbor_iou=1.0, **knobs)(
+            params, x, det, -math.inf, 0.5)
+        live = torch.sum(det["scores"] >= 0.5, dim=-1)
+        live_m = torch.sum(gains["score"] >= 0.5, dim=-1)
+        if not (torch.equal(same["boxes"][:, :n], det["boxes"])
+                and torch.equal(same["count"], det["count"])
+                and int(same["n_split"].sum()) == 0
+                and torch.equal(opened["count"], live + live_m)
+                and torch.equal(opened["n_split"], live_m)):
+            raise AssertionError(f"refine B={b}: the margin's bounds are off")
+        phase("refine", f"B={b}: {n_launch} K1 launches a call; margin +inf "
+                        f"leaves boxes and counts; margin -inf with "
+                        f"max_neighbor_iou 1 counts live + live in the top "
+                        f"{REFINE_M}: {int(live.sum())} + "
+                        f"{int(live_m.sum())} = {int(opened['count'].sum())};"
+                        f" at margin 0 {int(out['n_split'].sum())} splits "
+                        f"(random weights)")
+
+        # times: the detector and the refiner in turns, then each launch
+        times = {"detector": [], "refiner": []}
+        fns = {"detector": lambda: detect(params, x),
+               "refiner": lambda: refiner(params, x, det, 0.0, 0.5)}
+        for k in ("detector", "refiner", "refiner", "detector"):
+            times[k].append(cuda_ms(fns[k], 3))
+        phase("refine", f"B={b}: detector "
+                        f"{', '.join(f'{v:.3f}' for v in times['detector'])}"
+                        f" ms/call, refiner "
+                        f"{', '.join(f'{v:.3f}' for v in times['refiner'])} "
+                        f"ms/call (CUDA events, in turns; {card})")
+        for (a, _), what in zip(calls, ("parents", "candidates")):
+            scenes, k = a[0].shape[:2]
+            got = {"K1": [], "plain": []}
+            kfns = {"K1": lambda: K.composite_forward(*a),
+                    "plain": lambda: K.composite_plain(*a, chunk=k)}
+            for name in ("plain", "K1", "K1", "plain"):
+                got[name].append(cuda_ms(kfns[name], 20))
+            t = sum(got["K1"]) / 2
+            bms, by, moved = bound(scenes, C, 4, True,
+                                   support_pairs(a[3], canvas_hw=wins),
+                                   n=k, canvas_hw=wins)
+            phase("refine", f"K1 {what} B={b} ({scenes} x {k} objects): "
+                            f"{', '.join(f'{v:.4f}' for v in got['K1'])} ms,"
+                            f" plain "
+                            f"{', '.join(f'{v:.4f}' for v in got['plain'])} "
+                            f"ms; bound {bms:.4f} ms ({by}), {bms / t:.1%} "
+                            f"of it; achieved {moved / t / 1e6:.1f} GB/s "
+                            f"({card})")
+    return launches
+
+
+def figure_phase(K, card, dev):
+    """Phase 15(b): ``generative_grad_views`` at paper128, B=32, on the
+    latents of an eval forward, through K1/K2 against autograd through the
+    plain compositor; K1 and K2 timed on its inputs. Returns the (K1, K2)
+    launches of one call."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.data import generate_batch, glyph_bank
+    from spair_pytorch_tpu_torch.models import init_params
+    from spair_pytorch_tpu_torch.models.render import decode_objects
+    from spair_pytorch_tpu_torch.models.spair import forward
+    from spair_pytorch_tpu_torch.train import data_config
+    from spair_pytorch_tpu_torch.utils.debug import generative_grad_views
+
+    cfg = PRESETS["paper128"]()
+    params = init_params(cfg, device=dev)
+    dcfg = data_config(cfg)
+    bank = torch.as_tensor(glyph_bank(dcfg.patch_hw), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(151)
+    x = generate_batch(gen, bank, B, dcfg)[0]
+    with torch.no_grad():
+        aux = forward(params, cfg, x, 1500, gen)[1]
+    zs = [aux[k] for k in ("z_attr", "z_where", "z_depth", "z_pres")]
+    K.composite_forward.launches = K.composite_backward.launches = 0
+    got = generative_grad_views(params, cfg, x, *zs)
+    torch.cuda.synchronize()
+    launches = (K.composite_forward.launches, K.composite_backward.launches)
+    if launches != (1, 1):
+        raise AssertionError(f"generative_grad_views launched {launches}")
+    plain_cfg = dataclasses.replace(cfg, render_backend="xla")
+    want = generative_grad_views(params, plain_cfg, x, *zs)
+    check("figures", f"generative_grad_views B={B} through K1/K2 against "
+                     f"autograd through the plain compositor", GRAD_BAR,
+          got, want, ("dec_grad", "attr_grad"))
+    views = {"kernels": [], "plain": []}
+    vfns = {"kernels": lambda: generative_grad_views(params, cfg, x, *zs),
+            "plain": lambda: generative_grad_views(params, plain_cfg, x,
+                                                   *zs)}
+    for k in ("plain", "kernels", "kernels", "plain"):
+        views[k].append(cuda_ms(vfns[k], 3))
+    phase("figures", f"generative_grad_views B={B}: K1/K2 "
+                     f"{', '.join(f'{v:.3f}' for v in views['kernels'])} "
+                     f"ms/call, plain compositor "
+                     f"{', '.join(f'{v:.3f}' for v in views['plain'])} "
+                     f"ms/call; launches K1 {launches[0]}, K2 {launches[1]} "
+                     f"a call ({card})")
+
+    b, _, gh, gw = aux["z_pres"].shape
+
+    def flat(t):
+        return t.permute(0, 2, 3, 1).reshape(b, gh * gw, -1)
+    with torch.no_grad():
+        glimpses = decode_objects(params, cfg, flat(aux["z_attr"]),
+                                  flat(aux["z_pres"]), flat(aux["z_depth"]))
+    inputs = (*glimpses, flat(aux["z_where"]).contiguous())
+    cot = random_cotangents(B, torch.Generator(device=dev).manual_seed(152),
+                            dev)
+    fns = {"K1": lambda: K.composite_forward(*inputs, HW),
+           "plain K1": lambda: K.composite_plain(*inputs, HW),
+           "K2": lambda: K.composite_backward(*inputs, HW, *cot),
+           "plain K2": lambda: K.composite_backward_plain(*inputs, HW, *cot)}
+    times = {k: [] for k in fns}
+    with torch.no_grad():
+        for k in ("plain K1", "K1", "K1", "plain K1", "plain K2", "K2", "K2",
+                  "plain K2"):
+            times[k].append(cuda_ms(fns[k], 5 if k.startswith("plain")
+                                    else 20))
+    for k, fwd in (("K1", True), ("K2", False)):
+        bms, by, moved = bound(B, C, 4, fwd, support_pairs(inputs[3]))
+        t = sum(times[k]) / 2
+        plain = times["plain " + k]
+        phase("figures", f"{k} on the figure path's inputs (B={B}, f32, "
+                         f"ungated): "
+                         f"{', '.join(f'{v:.4f}' for v in times[k])} ms, "
+                         f"plain {', '.join(f'{v:.4f}' for v in plain)}"
+                         f" ms; bound {bms:.4f} ms ({by}), {bms / t:.1%} of "
+                         f"it; achieved {moved / t / 1e6:.1f} GB/s ({card})")
+    return launches
+
+
+def images_phase(K, card):
+    """Phase 15(c): train() of the main path for INPUT_STEPS steps with the
+    input|output images every 5 steps. Returns its (K1, K2) launches."""
+    _, ms, launches, losses = train_run(K, main_path_config(),
+                                        log_images_every=5)
+    # every step launches K1 and K2 once; each image step's forward K1
+    if launches != (INPUT_STEPS + 2, INPUT_STEPS):
+        raise AssertionError(f"train(log_images_every=5) launched "
+                             f"{launches}")
+    phase("figures", f"train() main path b{TRAIN_B}, {INPUT_STEPS} steps, "
+                     f"images every 5: {ms:.3f} ms/step, losses "
+                     f"{losses[0]:.1f} -> {losses[-1]:.1f}; launches K1 "
+                     f"{launches[0]}, K2 {launches[1]} ({card})")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is visible")
@@ -1708,6 +1949,22 @@ def main():
     tools_phase(meshed, dev)
     phase("inputs", f"phase 14 in {time.perf_counter() - t_phase:.1f} s")
 
+    # 15. split refinement and the figure path
+    t_phase = time.perf_counter()
+    refine_k1 = refine_phase(K, card, dev)
+    figure_k = figure_phase(K, card, dev)
+    images_k = images_phase(K, card)
+    phase("figures", f"phase 15 in {time.perf_counter() - t_phase:.1f} s")
+    # each path's own launches, from its own run with the counts set to 0
+    # just before it: `launches` is the main path's (phase 9, K1/K2) or the
+    # 'pallas_v3' path's (phase 12, K3/K4); `path_launches` those of
+    # phase 15's paths
+    paths = ({**{f"refine_b{b}": n for b, n in refine_k1.items()},
+              "generative_grad_views": figure_k[0],
+              "train_log_images": images_k[0]},
+             {"generative_grad_views": figure_k[1],
+              "train_log_images": images_k[1]}, {}, {})
+
     # the kernels at the main paths' batch, B=128, on the same inputs; K3
     # and K4 are the same sources' kernels launched with a band
     src = "spair_pytorch_tpu_torch/csrc"
@@ -1725,8 +1982,8 @@ def main():
          "replaces": f"{pallas}/{where}", "launches": n, "max_abs_err": err,
          "ms": same[k], "plain_ms": same[f"plain {k}"],
          "bound_ms": same["bound"][k][0], "bound_by": same["bound"][k][1],
-         "library_ms": None}
-        for name, source, k, where, n, err in rows]}))
+         "library_ms": None, "path_launches": path}
+        for (name, source, k, where, n, err), path in zip(rows, paths)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

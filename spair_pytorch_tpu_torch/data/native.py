@@ -4,8 +4,10 @@
 ``native/scattered_digits.cc`` is multithreaded host C++ that writes batches
 into preallocated buffers: the host-side alternative to the on-device
 generator. It is built from that source at first use, with one ``g++``
-call, into ``_build/`` under a name carrying the hash of the source and the
-flags (an edited source rebuilds); a failed build raises with g++'s output.
+call, into the build directory (``utils/compile_cache.py``: the package's
+``_build/`` unless ``SPAIR_COMPILE_CACHE`` says otherwise) under a name
+carrying the hash of the source and the flags (an edited source rebuilds);
+a failed build raises with g++'s output.
 The tracked ``native/libspair_native.so`` is never loaded.
 
 ``NativeScatteredDigits`` passes the C++ generator the JAX package's seed
@@ -30,10 +32,10 @@ import numpy as np
 import torch
 
 from spair_pytorch_tpu_torch.data.scattered_mnist import DataConfig, glyph_bank
+from spair_pytorch_tpu_torch.utils.compile_cache import build_dir
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG.parent / "native" / "scattered_digits.cc"
-BUILD_DIR = _PKG / "_build"
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 
 
@@ -42,7 +44,7 @@ def library_path() -> Path:
     and the g++ flags."""
     digest = hashlib.sha256(SOURCE.read_bytes()
                             + " ".join(GXX_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"spair_native_{digest[:16]}.so"
+    return build_dir() / f"spair_native_{digest[:16]}.so"
 
 
 def build_native() -> Path:

@@ -9,6 +9,9 @@ deterministic detector's count accuracy, averaged over --batches batches.
 NMS IoU) and stores it as <logdir>/calibration.json, which the server
 reads.
 
+``--figure PATH`` writes the renderer-analysis panel of the last evaluated
+batch (``utils/viz.py``; needs matplotlib).
+
 Usage, on a machine with a CUDA card:
     python -m spair_pytorch_tpu_torch.eval --logdir runs/paper128 --batches 16
 """
@@ -199,11 +202,9 @@ def main(argv=None):
                    choices=["count", "ap50"],
                    help="calibration objective: exact count accuracy "
                         "(joint threshold x NMS) or pooled AP@0.5")
+    p.add_argument("--device", default="cuda",
+                   help="device to evaluate on (default: the card)")
     args = p.parse_args(argv)
-    if args.figure:
-        raise NotImplementedError(
-            "--figure needs utils/viz.py, which is not ported yet "
-            "(ROADMAP queue 1, 'The rest': utils/viz.py)")
 
     from spair_pytorch_tpu_torch.utils.checkpoint import CheckpointManager
 
@@ -218,8 +219,8 @@ def main(argv=None):
     else:
         cfg = PRESETS[args.preset](**overrides)
     state = CheckpointManager(os.path.join(args.logdir, "checkpoints")
-                              ).restore(create_train_state(cfg),
-                                        step=args.step)
+                              ).restore(create_train_state(
+                                  cfg, device=args.device), step=args.step)
     if state is None:
         raise SystemExit(f"no checkpoint under {args.logdir}")
 
@@ -237,11 +238,19 @@ def main(argv=None):
         with open(cal_path) as f:
             cal = json.load(f)
 
-    result, _, _ = evaluate(
+    result, aux, x = evaluate(
         cfg, state, batches=args.batches, digits=args.digits,
         det_threshold=cal["pres_threshold"] if cal else None,
         det_nms=cal.get("nms_iou") if cal else None)
     print(json.dumps(result, indent=2))
+
+    if args.figure:
+        # the renderer-analysis panel of the last evaluated batch
+        from spair_pytorch_tpu_torch.utils.viz import render_analysis_figure
+        fig = render_analysis_figure(*(t.cpu().numpy() for t in (
+            x, aux["recon"], aux["z_where"], aux["z_pres"], aux["z_depth"])))
+        fig.savefig(args.figure, dpi=120)
+        print(f"wrote {args.figure}")
     return result
 
 

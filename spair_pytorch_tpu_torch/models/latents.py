@@ -18,7 +18,8 @@ from spair_pytorch_tpu_torch.ops.backbone import (Backbone, grid_geometry,
                                                   reset_fan_in_)
 from spair_pytorch_tpu_torch.ops.convcodec import ConvDecoder, ConvEncoder
 from spair_pytorch_tpu_torch.ops.math import (clamped_sigmoid,
-                                              latent_to_mean_std)
+                                              latent_to_mean_std,
+                                              logistic_noise)
 from spair_pytorch_tpu_torch.ops.mlp import MLP
 from spair_pytorch_tpu_torch.ops.stn import crop_glimpses
 
@@ -119,16 +120,15 @@ def noise_shapes(batch: int, grid_hw: Tuple[int, int], cfg: SpairConfig):
 def sample_noise(generator: torch.Generator, batch: int,
                  grid_hw: Tuple[int, int], cfg: SpairConfig, device=None):
     """Every stochastic draw of one forward pass: standard normals for the
-    box, attr and depth latents and logistic noise log(u + 1e-9) -
-    log(1 - u + 1e-9) for presence, on ``device`` (by default the
-    generator's, where it must live)."""
+    box, attr and depth latents and ``logistic_noise`` for presence, on
+    ``device`` (by default the generator's, where it must live)."""
     if device is None:
         device = generator.device
     shapes = noise_shapes(batch, grid_hw, cfg)
     out = {name: torch.randn(shapes[name], generator=generator, device=device)
            for name in ("box", "attr", "depth")}
-    u = torch.rand(shapes["pres_noise"], generator=generator, device=device)
-    out["pres_noise"] = torch.log(u + 1e-9) - torch.log(1.0 - u + 1e-9)
+    out["pres_noise"] = logistic_noise(generator, shapes["pres_noise"],
+                                       device=device)
     return out
 
 

@@ -11,6 +11,8 @@ compositor under autograd ('xla'); or, for 'pallas_v3', from
 and K4, which compute the same function for the model's boxes.
 ``render_mode='ordered'`` is true depth-ordered alpha-over compositing
 (``composite_ordered``), plain PyTorch on every backend.
+``composite_ungated`` is the same choice for the paths that composite
+outside ``render`` (split refinement, the figures' gradient views).
 
 With the presence gate on, ``render_topk`` = K composites only the K
 objects of highest presence when no image has more than K live objects,
@@ -30,8 +32,8 @@ import torch
 
 from spair_pytorch_tpu_torch.config import SpairConfig
 from spair_pytorch_tpu_torch.ops.backbone import grid_geometry
-from spair_pytorch_tpu_torch.ops.kernels.composite import (composite,
-                                                           composite_plain)
+from spair_pytorch_tpu_torch.ops.kernels.composite import (
+    composite, composite_forward, composite_plain)
 from spair_pytorch_tpu_torch.ops.kernels.composite_v3 import composite_v3
 from spair_pytorch_tpu_torch.ops.math import clamped_sigmoid
 from spair_pytorch_tpu_torch.ops.stn import paste_weights
@@ -43,14 +45,19 @@ _TOPK_NEEDS_GATE = (
 
 
 def decode_objects(params, cfg: SpairConfig, z_attr, z_pres, z_depth,
-                   dtype=None):
+                   dtype=None, logit_tap=None):
     """z_attr (B, N, A) -> (color, alpha, importance), each (B, N, ·, oh, ow).
 
     The decoder (the MLP, or the conv decoder with ``object_codec='conv'``)
     computes in ``dtype`` and returns float32 logits. They are scaled
     (color x obj_logit_scale, alpha x alpha_logit_scale + alpha_logit_bias)
     and squashed with the analytical sigmoid; alpha is gated by z_pres and
-    importance = clamp(alpha * depth, min=0.01)."""
+    importance = clamp(alpha * depth, min=0.01).
+
+    ``logit_tap``: optional zeros (B, N, oh, ow, C+1) added to the scaled
+    and biased logits; its gradient is the gradient at the tensor the
+    reference's decoder-output hook watched (``utils/debug.py::
+    generative_grad_views``)."""
     c = cfg.n_channels
     oh, ow = cfg.object_shape
     if cfg.object_codec == "conv":
@@ -62,6 +69,9 @@ def decode_objects(params, cfg: SpairConfig, z_attr, z_pres, z_depth,
     color_logits = logits[..., :c] * cfg.obj_logit_scale
     alpha_logits = (logits[..., c:] * cfg.alpha_logit_scale
                     + cfg.alpha_logit_bias)
+    if logit_tap is not None:
+        color_logits = color_logits + logit_tap[..., :c]
+        alpha_logits = alpha_logits + logit_tap[..., c:]
     color = clamped_sigmoid(color_logits, use_analytical=True)
     alpha = clamped_sigmoid(alpha_logits, use_analytical=True)
     alpha = alpha * z_pres[..., None, None, :]               # (B,N,oh,ow,1)
@@ -142,6 +152,24 @@ def _live_at_most(gate, k: int) -> bool:
     sync."""
     live = torch.sum((gate > 0).to(torch.int32), dim=1)
     return int(torch.max(live)) <= k
+
+
+def composite_ungated(cfg: SpairConfig, color, alpha, importance, boxes,
+                      image_hw, chunk=None, grad: bool = True):
+    """(num, den) of the reference-blend composite with no presence gate,
+    the function of the JAX package's ``composite_xla``, for the paths that
+    composite outside ``render``. 'xla' takes the plain compositor
+    (``chunk`` objects at a time, ``cfg.render_chunk`` by default) on any
+    device. Every other backend takes K1, and K2 under autograd when
+    ``grad``, on CUDA tensors and their plain versions on CPU tensors;
+    'pallas_v3' too, since without a gate K3 computes K1's function.
+    ``grad=False`` is the forward alone, for use outside autograd."""
+    if cfg.render_backend == "xla":
+        return composite_plain(color, alpha, importance, boxes, image_hw,
+                               chunk or cfg.render_chunk)
+    if grad:
+        return composite(color, alpha, importance, boxes, image_hw)
+    return composite_forward(color, alpha, importance, boxes, image_hw)
 
 
 def paste_window_rows(cfg: SpairConfig, image_hw):

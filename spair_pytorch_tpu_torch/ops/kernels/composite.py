@@ -14,9 +14,11 @@ plain PyTorch, for the tests; nothing on a path calls it.
 The same two kernels, launched with a row band, are ``ops/kernels/
 composite_v3.py``'s K3 and K4 (``_launch_forward`` / ``_launch_backward``
 take the band). They are compiled with ``nvcc`` at first use into
-``_build/``, one library per source, named by the hash of the source and
-the shared header (so an edited source rebuilds), and bound with
-``ctypes``. Nothing is built or loaded at import time.
+the build directory (``utils/compile_cache.py``: the package's ``_build/``
+unless ``SPAIR_COMPILE_CACHE`` says otherwise), one library per source,
+named by the hash of the source and the shared header (so an edited source
+rebuilds), and bound with ``ctypes``. Nothing is built or loaded at import
+time.
 """
 
 from __future__ import annotations
@@ -33,13 +35,14 @@ from typing import Dict
 import torch
 
 from spair_pytorch_tpu_torch.ops.stn import _source_coords_paste, paste_weights
+from spair_pytorch_tpu_torch.utils.compile_cache import (
+    build_dir as _build_dir)
 
 _EPS = 1e-9
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
            for name in ("composite_fwd", "composite_bwd")}
 HEADERS = (_PKG / "csrc" / "composite_common.cuh",)
-BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the most shared memory one block of the backward kernel may take
@@ -48,6 +51,8 @@ _BWD_SMEM_MAX = 227 * 1024
 CULL_CHUNK = 128
 # support pixels in one of K2's dP tiles, before the shared-memory budget
 BWD_TILE_PX = 2048
+# the most images (grid rows) one launch of either kernel takes
+MAX_SCENES = 65535
 # grid rows whose band starts travel in the launch's parameters (csrc/
 # composite_common.cuh kMaxBandRows); a taller grid passes them in device
 # memory
@@ -267,26 +272,27 @@ def _find_nvcc() -> str:
     return path
 
 
-def library_path(name: str, build_dir: Path = BUILD_DIR) -> Path:
-    """Where the build of ``SOURCES[name]`` lives: named by the hash of
-    the source, the shared header and the nvcc flags."""
+def library_path(name: str) -> Path:
+    """Where the build of ``SOURCES[name]`` lives in the build directory
+    (``utils/compile_cache.py::build_dir``): named by the hash of the
+    source, the shared header and the nvcc flags."""
     digest = hashlib.sha256(
         SOURCES[name].read_bytes()
         + b"".join(h.read_bytes() for h in HEADERS)
         + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return Path(build_dir) / f"{name}_{digest[:16]}.so"
+    return _build_dir() / f"{name}_{digest[:16]}.so"
 
 
-def build_library(build_dir: Path = BUILD_DIR) -> Dict[str, Path]:
+def build_library() -> Dict[str, Path]:
     """Compile every source in ``SOURCES`` that has no build of the same
-    hash in ``build_dir``, one nvcc process per source, all started
+    hash in the build directory, one nvcc process per source, all started
     together; returns {name: shared library path}. Waits for every nvcc
     it started, then raises with nvcc's output if any build failed."""
-    outs = {name: library_path(name, build_dir) for name in SOURCES}
+    outs = {name: library_path(name) for name in SOURCES}
     todo = {name: out for name, out in outs.items() if not out.exists()}
     if not todo:
         return outs
-    Path(build_dir).mkdir(parents=True, exist_ok=True)
+    _build_dir().mkdir(parents=True, exist_ok=True)
     nvcc = _find_nvcc()
     procs = {}
     for name, out in todo.items():
@@ -308,10 +314,10 @@ def build_library(build_dir: Path = BUILD_DIR) -> Dict[str, Path]:
     return outs
 
 
-def ptxas_report(name: str, build_dir: Path = BUILD_DIR) -> str:
+def ptxas_report(name: str) -> str:
     """What ``-Xptxas -v`` said when ``SOURCES[name]`` was built: each
     kernel's registers, shared memory and spills ('' before a build)."""
-    log = library_path(name, build_dir).with_suffix(".log")
+    log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
@@ -368,7 +374,7 @@ def _check_cuda_inputs(color, alpha, importance, boxes, pres_gate, image_hw):
     if min(ih, iw, oh, ow) < 2:
         raise ValueError("canvas and glimpse sides must be at least 2")
     # grid rows are images; K2 numbers the objects b * n with an int
-    if b > 65535 or b * n >= 2 ** 31 or ih * iw >= 2 ** 31:
+    if b > MAX_SCENES or b * n >= 2 ** 31 or ih * iw >= 2 ** 31:
         raise ValueError(f"shape out of the kernel's range: B={b}, N={n}, "
                          f"H*W={ih * iw}")
     return b, n, c, oh, ow

@@ -72,3 +72,15 @@ def binary_cross_entropy_sum(recon, target):
     backward, (r - t) / max(r (1 - r), 1e-12), is the one that package's
     custom VJP reproduces: finite at recon values of exactly 0 and 1."""
     return F.binary_cross_entropy(recon, target, reduction="sum")
+
+
+def logistic_noise(generator: torch.Generator, shape, eps: float = 1e-9,
+                   device=None):
+    """log(u + eps) - log(1 - u + eps), u ~ U(0, 1) drawn from
+    ``generator`` on ``device`` (by default the generator's): the
+    relaxed-Bernoulli noise of the reference's presence sample (its eps,
+    10e-10, is 1e-9)."""
+    if device is None:
+        device = generator.device
+    u = torch.rand(shape, generator=generator, device=device)
+    return torch.log(u + eps) - torch.log(1.0 - u + eps)

@@ -11,8 +11,16 @@ comes from the environment that ``torchrun`` sets (``RANK``,
 it the world has one rank. The backend is NCCL on CUDA devices (rank r on
 ``cuda:LOCAL_RANK``) and gloo on the CPU. A failed init raises.
 
-The object-axis ('model') sharding of the JAX package's ``parallel/
-constraints.py`` has no counterpart here.
+The mesh's second axis, 'model' (the JAX package's ``parallel/
+constraints.py``, which shards the object axis of the glimpse and render
+paths over devices and lets GSPMD insert the collectives), is not ported,
+by decision. It changes where work is placed, not what is computed, as
+``scan_remat`` does; the JAX CLI never turns it on (its ``train`` builds the
+mesh with ``n_model=1``); and a b128 main-path step peaks at 2.756 GiB of
+device memory on an 80 GB H100 (``chip_smoke.py`` phase 14(d)), so no
+configuration needs a model split over cards. Were one needed, it would be
+object-parallel compositing: each rank pastes its share of the objects and
+num/den are summed with one all-reduce.
 """
 
 from __future__ import annotations

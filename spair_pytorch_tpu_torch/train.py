@@ -17,7 +17,9 @@ source. ``--mesh`` trains data parallel over the world the environment
 describes (``parallel/mesh.py``; ``torchrun`` for more than one rank):
 every rank trains on its slice of the global batch, rank 0 alone writes
 logs, checkpoints and evaluations, and the logged scalars are reduced over
-the ranks.
+the ranks. ``log_images_every`` and ``log_figures_every`` write the
+input|output image pair and the six renderer-analysis figures
+(``utils/viz.py``; figures need matplotlib) for a fixed batch.
 
 Usage, on a machine with a CUDA card:
     python -m spair_pytorch_tpu_torch.train --preset paper128 --steps 2000 \
@@ -51,11 +53,15 @@ from spair_pytorch_tpu_torch.data import (DataConfig, OnDeviceScatteredDigits,
                                           resolve_source)
 from spair_pytorch_tpu_torch.data.native import NativeScatteredDigits
 from spair_pytorch_tpu_torch.eval import calibrate, evaluate
+from spair_pytorch_tpu_torch.models.render import decode_objects
+from spair_pytorch_tpu_torch.models.spair import forward
+from spair_pytorch_tpu_torch.ops.stn import crop_glimpses
 from spair_pytorch_tpu_torch.parallel.mesh import (make_mesh, replicate,
                                                    shard_batch)
 from spair_pytorch_tpu_torch.parallel.train_step import (create_train_state,
                                                          make_train_step)
 from spair_pytorch_tpu_torch.utils.checkpoint import CheckpointManager
+from spair_pytorch_tpu_torch.utils.debug import generative_grad_views
 from spair_pytorch_tpu_torch.utils.logging import MetricWriter
 
 
@@ -145,15 +151,13 @@ def train(cfg: SpairConfig,
     ``parallel/mesh.py::make_mesh`` (and ends it on return if it started
     it); ``device`` then names the device type, each rank computing on its
     own device."""
-    if log_images_every or log_figures_every:
-        raise NotImplementedError("image and figure logging is not ported "
-                                  "yet (ROADMAP queue 1: utils/viz.py)")
     mesh = make_mesh(device) if use_mesh else None
     try:
         return _train(cfg, steps, logdir, hdf5, data_source, mesh,
-                      checkpoint_every, metrics_every, log_flush_every,
-                      halt_on_nan, resume, verbose, digits, eval_every,
-                      eval_batches, steps_per_call, calibrate_at_end,
+                      checkpoint_every, metrics_every, log_images_every,
+                      log_figures_every, log_flush_every, halt_on_nan,
+                      resume, verbose, digits, eval_every, eval_batches,
+                      steps_per_call, calibrate_at_end,
                       mesh.device if mesh is not None else device)
     finally:
         if mesh is not None:
@@ -161,9 +165,9 @@ def train(cfg: SpairConfig,
 
 
 def _train(cfg, steps, logdir, hdf5, data_source, mesh, checkpoint_every,
-           metrics_every, log_flush_every, halt_on_nan, resume, verbose,
-           digits, eval_every, eval_batches, steps_per_call,
-           calibrate_at_end, device):
+           metrics_every, log_images_every, log_figures_every,
+           log_flush_every, halt_on_nan, resume, verbose, digits, eval_every,
+           eval_batches, steps_per_call, calibrate_at_end, device):
     # data generated on the device runs steps_per_call steps a call; the
     # host sources (HDF5, native) one, as in the JAX package
     fused = hdf5 is None and data_source == "device"
@@ -172,7 +176,9 @@ def _train(cfg, steps, logdir, hdf5, data_source, mesh, checkpoint_every,
         # a mid-window cadence hit would label the end-of-window state with
         # a step that is not round (breaking `eval --step N`)
         for nm, every in (("checkpoint_every", checkpoint_every),
-                          ("eval_every", eval_every)):
+                          ("eval_every", eval_every),
+                          ("log_images_every", log_images_every),
+                          ("log_figures_every", log_figures_every)):
             if every and every % spc != 0:
                 raise ValueError(
                     f"{nm}={every} must be a multiple of "
@@ -216,6 +222,7 @@ def _train(cfg, steps, logdir, hdf5, data_source, mesh, checkpoint_every,
         data = make_data(cfg, hdf5, source=data_source, digits=digits,
                          device=device)
     rem_step_fn = None  # built for a last window shorter than spc
+    viz_data = None
     eval_set = None
     last_loss = float("nan")
 
@@ -285,6 +292,19 @@ def _train(cfg, steps, logdir, hdf5, data_source, mesh, checkpoint_every,
             return bool(every) and any(
                 (j + offset) % every == 0 for j in range(it, it + n_sub))
 
+        # input/output images and the renderer-analysis figures (the
+        # reference plots them every 50 steps), on a fixed batch from seed
+        # 4242, by rank 0
+        log_images = main_rank and window_hits(log_images_every)
+        log_figures = main_rank and window_hits(log_figures_every)
+        if log_images or log_figures:
+            if viz_data is None:
+                viz_data = make_data(cfg, hdf5, seed=4242,
+                                     source=data_source, digits=digits,
+                                     device=device)
+            _log_viz(cfg, state, next(viz_data)[0], writer, it, log_images,
+                     log_figures)
+
         # held-out evaluation on a fixed set of scenes from a seed disjoint
         # from the training stream, from the training data's source, logged
         # under eval/* (by rank 0)
@@ -348,6 +368,59 @@ def _train(cfg, steps, logdir, hdf5, data_source, mesh, checkpoint_every,
         raise SystemExit(f"calibrate-at-end failed: {calibration_error!r} "
                          f"(training artifacts under {logdir} are complete)")
     return state
+
+
+@torch.no_grad()
+def _log_viz(cfg: SpairConfig, state, x, writer: MetricWriter, it: int,
+             images: bool, figures: bool):
+    """Write step ``it``'s input|output image pair and/or the six figures
+    and latent statistics under the JAX package's tags. The forward draws
+    its noise from a copy of the state's generator, so the training stream
+    is left as it was; the extras (decoded objects, glimpse crops,
+    gradient views) are computed on the training device."""
+    gen = torch.Generator(device=x.device)
+    gen.set_state(state.generator.get_state())
+    aux = forward(state.model, cfg, x, state.step, gen)[1]
+    host = {k: aux[k].cpu().numpy() for k in ("recon", "z_attr", "z_where",
+                                              "z_pres", "z_depth")}
+    xnp = x.cpu().numpy()
+    if images:
+        writer.image_pair(it, "SPAIR input_output", xnp[0], host["recon"][0])
+    if not figures:
+        return
+    from spair_pytorch_tpu_torch.utils import viz
+
+    b, _, gh, gw = aux["z_pres"].shape
+
+    def flat(t):  # NCHW grid -> (B, N, D)
+        return t.permute(0, 2, 3, 1).reshape(b, gh * gw, -1)
+
+    color, alpha, imp = decode_objects(state.model, cfg, flat(aux["z_attr"]),
+                                       flat(aux["z_pres"]),
+                                       flat(aux["z_depth"]))
+    glimpses = crop_glimpses(x, flat(aux["z_where"]), cfg.object_shape)
+    dec_grad, attr_grad = generative_grad_views(
+        state.model, cfg, x, aux["z_attr"], aux["z_where"], aux["z_depth"],
+        aux["z_pres"])
+    ex = {k: v.cpu().numpy() for k, v in (
+        ("color", color), ("alpha", alpha), ("importance", imp),
+        ("glimpses", glimpses), ("dec_grad", dec_grad),
+        ("attr_grad", attr_grad))}
+    writer.figure(it, "analysis/renderer", viz.render_analysis_figure(
+        xnp, host["recon"], host["z_where"], host["z_pres"],
+        host["z_depth"]))
+    # the reference's debug surface, under its tag names
+    writer.figure(it, "renderer_analysis", viz.prerender_components_figure(
+        ex["color"], ex["alpha"], ex["importance"], host["z_where"],
+        host["z_pres"], host["z_depth"], xnp))
+    writer.figure(it, "debug_cropped_input_images",
+                  viz.glimpse_grid_figure(ex["glimpses"]))
+    writer.figure(it, "z_attr/heatmap", viz.attr_stats_figure(host["z_attr"]))
+    writer.figure(it, "grad_visualization/decoder_out",
+                  viz.decoder_grad_figure(ex["dec_grad"], (gh, gw)))
+    writer.figure(it, "grad_visualization/z_attr",
+                  viz.attr_stats_figure(ex["attr_grad"]))
+    writer.latent_stats(it, host["z_where"], host["z_pres"], host["z_depth"])
 
 
 def main(argv=None):

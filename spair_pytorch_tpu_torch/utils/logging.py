@@ -86,14 +86,16 @@ class MetricWriter:
         self.scalars(step, scal)
 
     def figure(self, step: int, tag: str, fig):
-        """Write a matplotlib figure (reference debug_tools.py:104)."""
+        """Write a matplotlib figure (reference debug_tools.py:104) and
+        close it, as TensorBoard's add_figure does."""
         if self._tb is not None:
             self._tb.add_figure(tag, fig, step)
         else:
-            import os
+            import matplotlib.pyplot as plt
             d = os.path.join(self.logdir, "figures")
             os.makedirs(d, exist_ok=True)
             fig.savefig(os.path.join(d, f"{tag.replace('/', '_')}_{step}.png"))
+            plt.close(fig)
 
     def close(self):
         if self._tb is not None:

@@ -658,3 +658,94 @@ def test_native_batch_reaches_the_card_equal_to_the_host_batch(cuda):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+def window_inputs(seed, scenes, k, g, dev):
+    """Split refinement's windows: ``scenes`` scenes of ``k`` objects of
+    g x g glimpses on a 32 x 32 canvas, boxes in the window's frame (the
+    parent about 2/3 of the window, children inside it)."""
+    rng = np.random.RandomState(seed)
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return torch.as_tensor(rng.uniform(lo, hi, shape).astype("f"),
+                               device=dev)
+    color, alpha = u(scenes, k, 1, g, g), u(scenes, k, 1, g, g)
+    boxes = torch.cat([u(scenes, k, 2, lo=0.3, hi=0.7),
+                       u(scenes, k, 2, lo=0.3, hi=0.67)], -1).contiguous()
+    return color, alpha, boxes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scenes", [384, 2304])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("g", [14, 28])
+def test_kernel_at_split_refinement_shapes(cuda, scenes, k, g):
+    """K1 on refinement's windows (B*M scenes of one object, B*M*6 of two,
+    at M = 12 and B = 32 or 192 / 6) against the plain compositor."""
+    color, alpha, boxes = window_inputs(scenes + k + g, scenes, k, g, cuda)
+    imp = torch.clamp(alpha, min=0.01)
+    before = K.composite_forward.launches
+    with torch.no_grad():
+        got = K.composite_forward(color, alpha, imp, boxes, (32, 32))
+        torch.cuda.synchronize()
+        want = K.composite_plain(color, alpha, imp, boxes, (32, 32), chunk=k)
+    assert K.composite_forward.launches == before + 1
+    assert rel(got, want) < BARS["float32"]
+
+
+@pytest.mark.gpu
+def test_refinement_windows_past_the_scene_limit(cuda):
+    """More than 65,535 scenes: refine composites them in two launches of
+    K1, equal to the plain compositor on all of them at once."""
+    import dataclasses
+
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.models import refine
+
+    cfg = PRESETS["paper128"]()
+    plain_cfg = dataclasses.replace(cfg, render_backend="xla")
+    scenes = K.MAX_SCENES + 1000
+    color, alpha, boxes = window_inputs(5, scenes, 2, 14, cuda)
+    before = K.composite_forward.launches
+    with torch.no_grad():
+        got = refine._composite_window(cfg, color, alpha, boxes, (32, 32))
+        torch.cuda.synchronize()
+        assert K.composite_forward.launches == before + 2
+        want = refine._composite_window(plain_cfg, color, alpha, boxes,
+                                        (32, 32))
+    assert got.shape == (scenes, 1, 32, 32)
+    assert rel([got], [want]) < BARS["float32"]
+
+
+@pytest.mark.gpu
+def test_generative_grad_views_through_the_kernels(cuda):
+    """The figure path's gradient views at paper128 width (B = 4): K1
+    forward and K2 backward, ungated, against autograd through the plain
+    compositor ('xla'), each output on its own scale at the gradient bar."""
+    import dataclasses
+
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.models import init_params
+    from spair_pytorch_tpu_torch.utils.debug import generative_grad_views
+
+    cfg = PRESETS["paper128"]()
+    model = init_params(cfg, device=cuda)
+    rng = np.random.RandomState(6)
+    b, gh = 4, 11
+    zs = [torch.as_tensor(z.astype("f"), device=cuda) for z in (
+        rng.randn(b, cfg.n_attributes, gh, gh),
+        np.concatenate([rng.uniform(0.1, 0.9, (b, 2, gh, gh)),
+                        rng.uniform(0.05, 0.35, (b, 2, gh, gh))], 1),
+        rng.uniform(0.5, 3.5, (b, 1, gh, gh)),
+        rng.uniform(0.0, 1.0, (b, 1, gh, gh)))]
+    x = torch.as_tensor(rng.rand(b, 1, 128, 128).astype("f"), device=cuda)
+    launches = (K.composite_forward.launches, K.composite_backward.launches)
+    got = generative_grad_views(model, cfg, x, *zs)
+    torch.cuda.synchronize()
+    assert (K.composite_forward.launches, K.composite_backward.launches) \
+        == (launches[0] + 1, launches[1] + 1)
+    want = generative_grad_views(
+        model, dataclasses.replace(cfg, render_backend="xla"), x, *zs)
+    for g, w in zip(got, want):
+        assert float(w.abs().max()) > 0
+        assert rel([g], [w]) < GRAD_BARS["float32"]

@@ -5,6 +5,7 @@ metrics. Detection-metric values are compared to 1e-6 absolute; a resumed
 run must equal an uninterrupted one bit for bit."""
 
 import dataclasses
+import importlib.util
 import json
 import os
 
@@ -33,6 +34,7 @@ JCFG = tiny_config(batch_size=2, inference_mode="wavefront",
 CFG = tcfg(JCFG)
 RUN = dict(checkpoint_every=2, eval_every=2, eval_batches=1,
            steps_per_call=2, digits="font", verbose=False, device="cpu")
+HAVE_MPL = importlib.util.find_spec("matplotlib") is not None
 
 
 def rows(logdir):
@@ -116,15 +118,11 @@ def test_remainder_window_runs_exactly_the_steps_asked(tmp_path):
     dict(use_mesh=True), dict(log_images_every=2),
     dict(log_figures_every=2)], ids=lambda kw: next(iter(kw)))
 def test_unported_train_options_raise(tmp_path, monkeypatch, kw):
-    """The train() options the port refused: figure logging still raises;
-    the HDF5 and native data sources and the mesh are ported and take a
-    step (tests/test_torch_data_inputs.py and test_torch_parallel.py hold
-    them against the JAX package)."""
-    if "log_images_every" in kw or "log_figures_every" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrain.train(CFG, steps=1, logdir=str(tmp_path), device="cpu",
-                         **kw)
-        return
+    """The train() options the port once refused are all ported now and
+    take a step: the HDF5 and native data sources, the mesh (tests/
+    test_torch_data_inputs.py and test_torch_parallel.py hold them against
+    the JAX package), and image and figure logging, whose step 0 writes
+    (tests/test_torch_viz.py holds every tag)."""
     if "hdf5" in kw:
         pytest.importorskip("h5py")
         from spair_pytorch_tpu_torch.data.build_hdf5 import build
@@ -132,20 +130,43 @@ def test_unported_train_options_raise(tmp_path, monkeypatch, kw):
                              ttrain.data_config(CFG), digits="font"))
     for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(var, raising=False)
+    if "log_figures_every" in kw and not HAVE_MPL:
+        # without matplotlib figure logging raises matplotlib's own error
+        with pytest.raises(ModuleNotFoundError, match="matplotlib"):
+            ttrain.train(CFG, steps=1, logdir=str(tmp_path / "run"),
+                         checkpoint_every=0, verbose=False, digits="font",
+                         device="cpu", **kw)
+        return
     state = ttrain.train(CFG, steps=1, logdir=str(tmp_path / "run"),
                          checkpoint_every=0, verbose=False, digits="font",
                          device="cpu", **kw)
     assert int(state.step) == 1
+    if "log_images_every" in kw or "log_figures_every" in kw:
+        with open(tmp_path / "run" / "metrics.jsonl") as f:
+            latent = ["z_presence/mean" in json.loads(line) for line in f]
+        assert any(latent) == ("log_figures_every" in kw)
 
 
 def test_unported_cli_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teval.main(["--logdir", str(tmp_path), "--figure", "out.png"])
+    """The paths that should refuse still do; eval --figure, which the
+    port once refused, writes its PNG (without matplotlib it raises
+    matplotlib's own error)."""
     with pytest.raises(ValueError, match="unknown data source"):
         ttrain.make_data(CFG, source="disk", device="cpu")
     with pytest.raises(SystemExit, match="no checkpoint"):
         serve.main(["--preset", "small48", "--logdir", str(tmp_path),
                     "--device", "cpu"])
+    logdir = str(tmp_path / "run")
+    ttrain.train(CFG, steps=1, logdir=logdir, checkpoint_every=1,
+                 verbose=False, digits="font", device="cpu")
+    args = ["--logdir", logdir, "--figure", str(tmp_path / "out.png"),
+            "--batches", "1", "--digits", "font", "--device", "cpu"]
+    if not HAVE_MPL:
+        with pytest.raises(ModuleNotFoundError, match="matplotlib"):
+            teval.main(args)
+        return
+    teval.main(args)
+    assert (tmp_path / "out.png").stat().st_size > 0
 
 
 def match_inputs():
