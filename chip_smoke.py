@@ -120,13 +120,23 @@ preset's seed:
                 figures themselves are drawn only by the CPU tests
                 (tests/test_torch_viz.py); this phase computes everything
                 they plot.
+ 16. bench      the port's benchmark entry point, python -m
+                spair_pytorch_tpu_torch.bench, in a child process, twice:
+                the main path with --check (5 steps a call, 2 trials, 10
+                steps of pretraining), then 'pallas_v3' with the parallel
+                count prior in f32 (2 steps a call, 1 trial, no
+                pretraining); each JSON line printed, its check's six
+                errors beside their bars, the compositor kernels' launches
+                of each run (those of the check apart) against the count
+                its steps give.
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
 cuDNN convs in full f32), so kernels and plain versions are compared on the
 same arithmetic. The last two lines are a JSON summary of the kernels and
 the result line {"ok": true, "device": {...}}. A kernel's "launches" there
 are its own path's, K1/K2 from phase 9 and K3/K4 from phase 12, and its
-"path_launches" those of phase 15's paths, each read from its own run.
+"path_launches" those of phase 15's and phase 16's paths, each read from
+its own run.
 
     python3 chip_smoke.py              # on a machine with a CUDA card
 """
@@ -1784,6 +1794,90 @@ def images_phase(K, card):
     return launches
 
 
+# phase 16: the bench's two runs (name, flags)
+BENCH_RUNS = (
+    ("bench", ["--check", "--steps", "5", "--repeats", "2", "--block-sleep",
+               "0", "--pretrain", "10"]),
+    ("bench_pallas_v3", ["--render", "pallas_v3", "--count-kl", "par",
+                         "--compute-dtype", "float32", "--steps", "2",
+                         "--repeats", "1", "--block-sleep", "0",
+                         "--pretrain", "0"]),
+)
+# the child: bench.main with the given flags, then the four kernels'
+# launches on stderr, those of run_check (comparisons with the plain
+# compositor) apart
+BENCH_CHILD = """
+import json, sys
+from spair_pytorch_tpu_torch import bench
+from spair_pytorch_tpu_torch.ops.kernels import composite as K
+from spair_pytorch_tpu_torch.ops.kernels import composite_v3 as V
+fns = (K.composite_forward, K.composite_backward, V.composite_v3_forward,
+       V.composite_v3_backward)
+checked = [0] * 4
+run_check = bench.run_check
+def counted_check(*args, **kw):
+    before = [f.launches for f in fns]
+    try:
+        return run_check(*args, **kw)
+    finally:
+        checked[:] = [f.launches - n for f, n in zip(fns, before)]
+bench.run_check = counted_check
+bench.main(sys.argv[1:])
+print(json.dumps({"launches": [f.launches for f in fns],
+                  "check": checked}), file=sys.stderr)
+"""
+
+
+def bench_phase(card):
+    """Phase 16: the bench's runs in child processes. Returns each run's
+    launches of K1-K4 outside its check, by run name."""
+    from spair_pytorch_tpu_torch.bench import BARS, parse_args, pretrain_calls
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = {}
+    for name, flags in BENCH_RUNS:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", BENCH_CHILD, *flags],
+                             cwd=root, capture_output=True, text=True,
+                             timeout=420)
+        if res.returncode != 0:
+            raise AssertionError(f"bench {' '.join(flags)} exited "
+                                 f"{res.returncode}: {res.stderr[-4000:]}")
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+        counts = json.loads(res.stderr.strip().splitlines()[-1])
+        phase("bench", f"{name}: python -m spair_pytorch_tpu_torch.bench "
+                       f"{' '.join(flags)}: exit 0 in "
+                       f"{time.perf_counter() - t0:.1f} s ({card})")
+        phase("bench", json.dumps(line))
+        if not line["value"] > 0:
+            raise AssertionError(f"bench {name}: value {line['value']}")
+        args = parse_args(flags)
+        if args.check:
+            check = line["check"]
+            for k, bar in BARS.items():
+                phase("bench", f"  {k}: {check[k]:.3g} (bar {bar:g})")
+            if not (check["passed"] and check["k_step_loss_finite"]):
+                raise AssertionError(f"bench {name}: check {check}")
+            want_check = [3, 3, 0, 0]
+        else:
+            want_check = [0] * 4
+        # warm-up, pretraining, the check's call and 1 + 3 calls a trial of
+        # K steps, then the FLOP count's one step; one launch a step of the
+        # path's forward and backward kernels
+        steps = args.steps * (1 + pretrain_calls(args.pretrain, args.steps)
+                              + args.check + 4 * args.repeats) + 1
+        v3 = args.render == "pallas_v3"
+        path = [a - c for a, c in zip(counts["launches"], counts["check"])]
+        want = [0, 0, steps, steps] if v3 else [steps, steps, 0, 0]
+        phase("bench", f"{name}: launches K1-K4 {path} in {steps} steps "
+                       f"(the check's apart: {counts['check']})")
+        if path != want or counts["check"] != want_check:
+            raise AssertionError(f"bench {name}: launches {counts}, "
+                                 f"expected {want} and {want_check}")
+        paths[name] = path
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is visible")
@@ -1955,15 +2049,25 @@ def main():
     figure_k = figure_phase(K, card, dev)
     images_k = images_phase(K, card)
     phase("figures", f"phase 15 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 16. the benchmark entry point
+    t_phase = time.perf_counter()
+    bench_k = bench_phase(card)
+    phase("bench", f"phase 16 in {time.perf_counter() - t_phase:.1f} s")
     # each path's own launches, from its own run with the counts set to 0
     # just before it: `launches` is the main path's (phase 9, K1/K2) or the
     # 'pallas_v3' path's (phase 12, K3/K4); `path_launches` those of
-    # phase 15's paths
+    # phase 15's paths and of the bench's runs (phase 16, a fresh process
+    # each, its check's launches left out)
     paths = ({**{f"refine_b{b}": n for b, n in refine_k1.items()},
               "generative_grad_views": figure_k[0],
               "train_log_images": images_k[0]},
              {"generative_grad_views": figure_k[1],
               "train_log_images": images_k[1]}, {}, {})
+    for name, counts in bench_k.items():
+        for path, n in zip(paths, counts):
+            if n:
+                path[name] = n
 
     # the kernels at the main paths' batch, B=128, on the same inputs; K3
     # and K4 are the same sources' kernels launched with a band

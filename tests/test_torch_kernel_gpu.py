@@ -749,3 +749,23 @@ def test_generative_grad_views_through_the_kernels(cuda):
     for g, w in zip(got, want):
         assert float(w.abs().max()) > 0
         assert rel([g], [w]) < GRAD_BARS["float32"]
+
+
+@pytest.mark.gpu
+def test_bench_check_passes_on_the_card(cuda):
+    """The bench's --check gate at its default config (paper128, bf16,
+    gate 0.01, b128): K1 and K2 three times each (f32, bf16 glimpses,
+    gated), every error under bench.py's bar, and TF32 as it found it."""
+    from spair_pytorch_tpu_torch import bench
+
+    args = bench.parse_args([])
+    torch.backends.cudnn.allow_tf32 = True
+    launches = (K.composite_forward.launches, K.composite_backward.launches)
+    res = bench.run_check(bench.build_config(args), cuda)
+    assert (K.composite_forward.launches, K.composite_backward.launches) \
+        == (launches[0] + 3, launches[1] + 3)
+    assert res["passed"]
+    for k, bar in bench.BARS.items():
+        assert res[k] < bar, (k, res[k])
+    assert torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32

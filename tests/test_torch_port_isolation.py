@@ -15,6 +15,7 @@ import pytest
 
 import spair_pytorch_tpu_torch
 from spair_pytorch_tpu import config as jconfig
+from spair_pytorch_tpu_torch import bench
 from spair_pytorch_tpu_torch import config as tconfig
 from spair_pytorch_tpu_torch.models.latents import init_params
 from spair_pytorch_tpu_torch.parallel.train_step import create_train_state
@@ -35,7 +36,7 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
     assert "spair_pytorch_tpu_torch.train" in mods
     assert "spair_pytorch_tpu_torch.ops.convcodec" in mods
     for m in ("models.refine", "utils.viz", "utils.compile_cache",
-              "examples.quickstart"):
+              "examples.quickstart", "bench"):
         assert f"spair_pytorch_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -97,6 +98,10 @@ def test_module_level_names_equal_the_jax_packages():
     assert tconfig.free_box_priors() == jconfig.free_box_priors()
 
 
-@pytest.mark.parametrize("fn", [init_params, create_train_state])
+@pytest.mark.parametrize("fn", [init_params, create_train_state,
+                                bench.run_check, bench.main])
 def test_entry_points_default_to_the_card(fn):
-    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if fn is bench.main:  # a CLI: its --device flag
+        assert bench.make_parser().get_default("device") == "cuda"
+    else:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
