@@ -4,9 +4,10 @@
 Drives the port's serving path, its training step, its training entry
 point through the banded compositor ('pallas_v3') at paper128 width, the
 model options of three more presets, the host data inputs, int8 serving,
-data-parallel training (world size 1) and the tools, and split refinement
-and the figure path, on one CUDA card, with random weights from the
-preset's seed:
+data-parallel training (world size 1) and the tools, split refinement and
+the figure path, the benchmark entry point, and the train step captured as
+a CUDA graph against the eager step, on one CUDA card, with random weights
+from the preset's seed:
 
   1. device     the card's name and power limit (nvidia-smi);
   2. build      compiles csrc/composite_fwd.cu (K1, and K3 as its banded
@@ -38,9 +39,10 @@ preset's seed:
                 through the plain compositor ('xla'), from the same weights,
                 images and noise: loss and every parameter's gradient;
   9. main path  make_train_step(datagen, steps_per_call=10) at paper128,
-                bf16, wavefront, gate 0.01, batch 128: cold-start steps
-                from random weights (dense presence), finite losses, ms/step
-                and img/s, the device-busy share of one step; then both
+                bf16, wavefront, gate 0.01, batch 128, a captured CUDA
+                graph replayed once a step: cold-start steps from random
+                weights (dense presence), finite losses, ms/step and
+                img/s, the device-busy share of one replayed step; then both
                 kernels against their plain versions on the compositor
                 inputs that the trained state's inference and decoder make
                 for a generated batch of 128 (f32 glimpses, the 0.01 gate),
@@ -129,14 +131,35 @@ preset's seed:
                 errors beside their bars, the compositor kernels' launches
                 of each run (those of the check apart) against the count
                 its steps give.
+ 17. captured   the main-path step captured as a CUDA graph
+                (parallel/captured.py), against the eager step
+                (make_train_step(eager=True)): (a) 5 calls of one step and
+                one call of 5, 'auto' (K1/K2) and 'pallas_v3' (K3/K4),
+                under deterministic kernels: every metric, the step, every
+                parameter and Adam tensor and the generator bit for bit;
+                the same for 'auto' with the default kernels beside an
+                eager-against-eager control; (b) the scenes each replay
+                draws, new each step and equal to the eager step's; (c)
+                each call's metrics fresh; (d) each kernel's launches in a
+                captured call of 5 steps, counted over the replays; (e) a
+                captured step refuses another state and Adam's state
+                loaded anew; (f) eager against captured ms/step and img/s
+                in turns (CUDA events over 2 calls of 10), the first call's
+                time and each arm's peak memory; (g) the device's busy
+                share of a captured call under the profiler; (h) the first
+                call of a captured step (warm-up and capture) beside an
+                eager step; (i) a resumed train() against an uninterrupted
+                one; (j) a .item() injected into the step makes the capture
+                raise, and no step runs eagerly in its place.
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
 cuDNN convs in full f32), so kernels and plain versions are compared on the
 same arithmetic. The last two lines are a JSON summary of the kernels and
 the result line {"ok": true, "device": {...}}. A kernel's "launches" there
 are its own path's, K1/K2 from phase 9 and K3/K4 from phase 12, and its
-"path_launches" those of phase 15's and phase 16's paths, each read from
-its own run.
+"path_launches" those of phase 15's, phase 16's and phase 17's paths, each
+read from its own run. Launches of a captured step are counted over its
+replays.
 
     python3 chip_smoke.py              # on a machine with a CUDA card
 """
@@ -566,6 +589,7 @@ def main_path_phase(K, card, dev):
                   f"img/s (CUDA events over {TRAIN_CALLS} calls of "
                   f"{STEPS_PER_CALL} steps; {card})")
     one = make_train_step(cfg, datagen=(dcfg, bank))
+    one(state)  # its warm-up and capture: the profiled call is a replay
     wall, busy, n_kernels, events = profiled(lambda: one(state))
     # the profiler's host overhead stretches the wall; the busy share of the
     # unprofiled step is the device time over the CUDA-event ms/step
@@ -974,6 +998,7 @@ def v3_path_phase(V, K, card, dev):
                   f"{TRAIN_B / ms * 1e3:.1f} img/s (CUDA events over 2 calls "
                   f"of {STEPS_PER_CALL} steps, cold start; {card})")
     one = make_train_step(cfg, datagen=(data_config(cfg), bank))
+    one(state)  # its warm-up and capture: the profiled call is a replay
     wall, busy, n_kernels, events = profiled(lambda: one(state))
     phase("path", f"one pallas_v3 train step under the profiler: {wall:.3f} "
                   f"ms wall, device busy {busy:.3f} ms ({busy / ms:.1%} of "
@@ -1514,7 +1539,9 @@ def memory_phase(card, dev):
         dcfg = data_config(cfg)
         bank = torch.as_tensor(glyph_bank(dcfg.patch_hw), device=dev)
         state = create_train_state(cfg, device=dev)
-        step = make_train_step(cfg, datagen=(dcfg, bank))
+        # the eager step: a replay allocates nothing, so phase 17 reads
+        # the captured step's peak over its first call
+        step = make_train_step(cfg, datagen=(dcfg, bank), eager=True)
         step(state)  # Adam's moments and the allocator's pools exist
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1878,6 +1905,380 @@ def bench_phase(card):
     return paths
 
 
+# phase 17: the train step captured as a CUDA graph (parallel/captured.py)
+CAPTURED_K = 5   # the A/B's call of K steps
+
+
+def run_steps(cfg, datagen, eager, dev):
+    """5 calls of one step, then a call of CAPTURED_K steps after that
+    step's first call, from a fresh state: (state, the 6 calls' metrics,
+    K1-K4 launches of the last call)."""
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+    state = create_train_state(cfg, device=dev)
+    one = make_train_step(cfg, datagen=datagen, eager=eager)
+    many = make_train_step(cfg, datagen=datagen, steps_per_call=CAPTURED_K,
+                           eager=eager)
+    metrics = [one(state)[1] for _ in range(5)]
+    many(state)
+    before = [fn.launches for fn in counted_kernels()]
+    metrics.append(many(state)[1])
+    torch.cuda.synchronize()
+    return state, metrics, [fn.launches - n for fn, n in
+                            zip(counted_kernels(), before)]
+
+
+def counted_kernels():
+    from spair_pytorch_tpu_torch.ops.kernels import composite as K
+    from spair_pytorch_tpu_torch.ops.kernels import composite_v3 as V
+    return (K.composite_forward, K.composite_backward,
+            V.composite_v3_forward, V.composite_v3_backward)
+
+
+def same_run(a, b):
+    """(tensors equal bit for bit, tensors, max |a - b|, generators equal)
+    over two runs' metrics, steps, parameters and Adam state."""
+    def tensors(run):
+        state, metrics, _ = run
+        return ([m[k] for m in metrics for k in sorted(m)] + [state.step]
+                + list(state.model.parameters())
+                + [v for s in state.optimizer.state.values()
+                   for v in s.values() if torch.is_tensor(v)])
+    pairs = list(zip(tensors(a), tensors(b)))
+    equal = sum(torch.equal(x, y) for x, y in pairs)
+    diff = max(float((x.detach().float() - y.detach().float()).abs().max())
+               for x, y in pairs)
+    return equal, len(pairs), diff, torch.equal(a[0].generator.get_state(),
+                                                b[0].generator.get_state())
+
+
+class Deterministic:
+    """Deterministic kernels (cuDNN's and PyTorch's) inside, as phase
+    14(c) compares runs."""
+
+    def __enter__(self):
+        torch.backends.cudnn.deterministic = True
+        self.warnings = warnings.catch_warnings()
+        self.warnings.__enter__()
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        self.warnings.__exit__(*exc)
+
+
+def graph_ms(fn, generator=None, reps: int = 10) -> float:
+    """Device ms of ``fn`` captured as one CUDA graph (``generator``
+    registered with it): CUDA events over ``reps`` replays after a warm-up
+    run on the capture's stream."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def captured_phase(card, dev):
+    """Phase 17: the main-path step captured against eager. Returns the
+    K1-K4 launches of one captured call of CAPTURED_K steps by backend."""
+    import importlib
+
+    from spair_pytorch_tpu_torch.data import glyph_bank
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+    from spair_pytorch_tpu_torch.train import data_config, train
+
+    ts = importlib.import_module("spair_pytorch_tpu_torch.parallel."
+                                 "train_step")
+    cfg = main_path_config()
+    datagen = (data_config(cfg), torch.as_tensor(glyph_bank((14, 14)),
+                                                 device=dev))
+    t_phase = time.perf_counter()
+    # (a) captured against eager, 'auto' (K1/K2) and 'pallas_v3' (K3/K4),
+    # under deterministic kernels; (d) the launches of a captured call
+    launches = {}
+    for backend in ("auto", "pallas_v3"):
+        c = dataclasses.replace(cfg, render_backend=backend)
+        with Deterministic():
+            eager = run_steps(c, datagen, True, dev)
+            captured = run_steps(c, datagen, False, dev)
+        equal, total, diff, gen = same_run(captured, eager)
+        want = ([CAPTURED_K] * 2 + [0, 0] if backend == "auto"
+                else [0, 0] + [CAPTURED_K] * 2)
+        phase("captured", f"{backend}: captured against eager, 5 calls of "
+                          f"1 step and 1 call of {CAPTURED_K} "
+                          f"(deterministic kernels): {equal} of {total} "
+                          f"tensors (every metric of every step, the step, "
+                          f"parameters, Adam's state) equal bit for bit, max"
+                          f" |diff| {diff:.3e}; generators equal: {gen}; "
+                          f"launches K1-K4 of the captured {CAPTURED_K}-step"
+                          f" call {captured[2]} (eager {eager[2]}, expected "
+                          f"{want})")
+        if equal != total or not gen:
+            raise AssertionError(f"{backend}: the captured step differs "
+                                 f"from the eager one")
+        if captured[2] != want or eager[2] != want:
+            raise AssertionError(f"{backend}: launches {captured[2]}, "
+                                 f"{eager[2]}, expected {want}")
+        # (c) the metrics the 6 calls returned were held to the end and
+        # still equal eager's: no call's overwrote another's
+        losses = [float(m["losses/total"]) for m in captured[1][:5]]
+        if len(set(losses)) != 5:
+            raise AssertionError(f"captured losses repeat: {losses}")
+        launches[backend] = captured[2]
+    phase("captured", "metrics returned by each call, held across the later "
+                      "calls, equal eager's: fresh tensors every call; "
+                      f"losses of the 5 one-step calls {losses} ('pallas_v3')")
+    # the same without deterministic kernels: eager against eager is the
+    # control for captured against eager
+    runs = [run_steps(cfg, datagen, e, dev) for e in (True, True, False)]
+    for name, (a, b) in (("eager against eager", runs[:2]),
+                         ("captured against eager", (runs[2], runs[0]))):
+        equal, total, diff, gen = same_run(a, b)
+        phase("captured", f"auto, default kernels, {name}: {equal} of "
+                          f"{total} tensors equal bit for bit, max |diff| "
+                          f"{diff:.3e}; generators equal: {gen}")
+
+    # (b) the scenes each step draws, copied out of the graph by a spy
+    real = ts.generate_batch
+    seen = torch.zeros((cfg.batch_size, 1) + tuple(cfg.image_shape[1:]),
+                       device=dev)
+
+    def spy(*args):
+        x, gt_bbox, gt_count = real(*args)
+        seen.copy_(x)
+        return x, gt_bbox, gt_count
+    scenes = {}
+    ts.generate_batch = spy
+    try:
+        for eager in (True, False):
+            state = create_train_state(cfg, device=dev)
+            step = make_train_step(cfg, datagen=datagen, eager=eager)
+            scenes[eager] = []
+            for _ in range(4):
+                step(state)
+                scenes[eager].append(seen.clone())
+    finally:
+        ts.generate_batch = real
+    new = all(not torch.equal(a, b) for a, b in zip(scenes[False],
+                                                    scenes[False][1:]))
+    same = all(torch.equal(a, b) for a, b in zip(scenes[False],
+                                                 scenes[True]))
+    phase("captured", f"scenes of 4 steps (1 eager, 3 replays): each "
+                      f"differs from the last: {new}; equal to the eager "
+                      f"step's, step for step: {same}")
+    if not (new and same):
+        raise AssertionError("the replays do not draw the eager scenes")
+
+    # (e) bound to its state
+    state = create_train_state(cfg, device=dev)
+    step = make_train_step(cfg, datagen=datagen)
+    step(state)
+    refused = []
+    for what, arg in (("another state", create_train_state(cfg, device=dev)),
+                      ("Adam's state loaded from new tensors", None)):
+        if arg is None:
+            saved = state.optimizer.state_dict()
+            saved["state"] = {i: {k: v.clone() for k, v in t.items()}
+                              for i, t in saved["state"].items()}
+            state.optimizer.load_state_dict(saved)
+            arg = state
+        try:
+            step(arg)
+        except RuntimeError as e:
+            refused.append(f"{what}: {str(e)[:60]}...")
+    phase("captured", f"a captured step refuses {len(refused)} of 2: "
+                      f"{refused}")
+    if len(refused) != 2:
+        raise AssertionError("a captured step ran with a state it is not "
+                             "bound to")
+    del state, step
+
+    # (f) eager against captured, in turns: CUDA events over 2 calls of 10
+    # steps after a first call; (h) the first call's time and the peak
+    # memory of the step of each arm
+    times = {"eager": [], "captured": []}
+    gib = 2.0 ** 30
+    for arm in ("eager", "captured", "captured", "eager"):
+        state = create_train_state(cfg, device=dev)
+        step = make_train_step(cfg, datagen=datagen,
+                               steps_per_call=STEPS_PER_CALL,
+                               eager=arm == "eager")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        step(state)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, m = step(state)
+        issue = (time.perf_counter() - t0) * 1e3 / (2 * STEPS_PER_CALL)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / (2 * STEPS_PER_CALL)
+        times[arm].append(ms)
+        phase("captured", f"{arm} main-path step: {ms:.3f} ms/step, "
+                          f"{TRAIN_B / ms * 1e3:.1f} img/s (CUDA events over "
+                          f"2 calls of {STEPS_PER_CALL}; the host returned "
+                          f"from them after {issue:.3f} ms a step); first "
+                          f"call of "
+                          f"{STEPS_PER_CALL} steps {first:.3f} s; peak "
+                          f"allocated "
+                          f"{torch.cuda.max_memory_allocated(dev) / gib:.3f}"
+                          f" GiB ({held / gib:.3f} GiB held before the "
+                          f"state was made), reserved "
+                          f"{torch.cuda.max_memory_reserved(dev) / gib:.3f} "
+                          f"GiB ({card})")
+        if arm == "captured" and len(times[arm]) == 1:
+            # (g) the device's busy share of one captured call
+            wall, busy, n_kernels, events = profiled(lambda: step(state))
+            phase("captured", f"one captured call of {STEPS_PER_CALL} steps "
+                              f"under the profiler: {wall:.3f} ms wall, "
+                              f"device busy {busy:.3f} ms ({busy / wall:.1%}"
+                              f" of that wall, "
+                              f"{busy / ms / STEPS_PER_CALL:.1%} of the "
+                              f"unprofiled {ms:.3f} ms/step), "
+                              f"{n_kernels} device kernels ({card})")
+            print(events.table(sort_by="self_device_time_total",
+                               row_limit=12), flush=True)
+        del state, step
+    e, c = (sum(times[k]) / 2 for k in ("eager", "captured"))
+    phase("captured", f"eager {', '.join(f'{x:.3f}' for x in times['eager'])}"
+                      f" against captured "
+                      f"{', '.join(f'{x:.3f}' for x in times['captured'])} "
+                      f"ms/step in turns (eager, captured, captured, eager):"
+                      f" {e / c:.2f}x ({card})")
+    # the one-off cost: the first call of one step, warm-up and capture,
+    # beside one eager step
+    for what in ("an eager step", "the first call of a captured step (its "
+                 "eager warm-up step and the capture)"):
+        state = create_train_state(cfg, device=dev)
+        step = make_train_step(cfg, datagen=datagen,
+                               eager=what.startswith("an eager"))
+        if what.startswith("an eager"):
+            step(state)  # as the captured step's warm-up, after a first
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state)
+        torch.cuda.synchronize()
+        phase("captured", f"{what}: {(time.perf_counter() - t0) * 1e3:.1f} "
+                          f"ms (host clock; {card})")
+        del state, step
+
+    # (i) a resumed train() equals an uninterrupted one, each train() call
+    # capturing its own step after the restore
+    run = dict(checkpoint_every=2, steps_per_call=2, digits="font",
+               verbose=False, device=dev)
+    with tempfile.TemporaryDirectory() as d, Deterministic():
+        whole = train(cfg, steps=4, logdir=f"{d}/a", **run)
+        train(cfg, steps=2, logdir=f"{d}/b", **run)
+        split = train(cfg, steps=2, logdir=f"{d}/b", **run)
+        rows = []
+        for r in "ab":
+            with open(f"{d}/{r}/metrics.jsonl") as f:
+                rows.append([json.loads(x).get("losses/total") for x in f])
+    equal, total, diff, gen = same_run((split, [], None), (whole, [], None))
+    phase("captured", f"train() 2 steps, a resume, 2 more against 4 steps "
+                      f"(deterministic kernels): losses equal "
+                      f"{rows[0] == rows[1]}, {equal} of {total} state "
+                      f"tensors equal bit for "
+                      f"bit, generators equal {gen}")
+    if rows[0] != rows[1] or equal != total or not gen:
+        raise AssertionError("the resumed captured run differs")
+
+    # (k) where the captured step's device time goes: each layer alone,
+    # forward and backward, captured and replayed (the state's noise
+    # given, so only the scene generator draws)
+    from spair_pytorch_tpu_torch.data import generate_batch
+    from spair_pytorch_tpu_torch.models.kl import count_prior_kl
+    from spair_pytorch_tpu_torch.models.latents import geometry, sample_noise
+    from spair_pytorch_tpu_torch.models.spair import (compute_dtype, forward,
+                                                      infer_latents)
+    state = create_train_state(cfg, device=dev)
+    make_train_step(cfg, datagen=datagen, eager=True)(state)
+    model, gen = state.model, torch.Generator(device=dev).manual_seed(3)
+    x = generate_batch(gen, datagen[1], cfg.batch_size, datagen[0])[0]
+    noise = sample_noise(gen, cfg.batch_size, geometry(cfg)[1], cfg, dev)
+    gh, gw = geometry(cfg)[1]
+    prob = torch.rand((cfg.batch_size, gh, gw, 1), generator=gen,
+                      device=dev) * 0.98 + 0.01
+
+    def backbone():
+        model.backbone(x, compute_dtype(cfg)).float().sum().backward()
+
+    def inference():
+        z = infer_latents(model, cfg, x, state.step, noise=noise)
+        sum(z[k].float().sum() for k in ("z_where", "z_attr", "z_depth",
+                                         "z_pres_prob")).backward()
+
+    def count_prior():
+        p = prob.clone().requires_grad_(True)
+        count_prior_kl(p, prob, state.step, cfg).sum().backward()
+
+    def loss():
+        forward(model, cfg, x, state.step, noise=noise)[0].backward()
+    pieces = {"scene generation": (lambda: generate_batch(
+                  gen, datagen[1], cfg.batch_size, datagen[0]), gen),
+              "backbone fwd+bwd": (backbone, None),
+              "inference fwd+bwd (backbone and 31 fronts)": (inference, None),
+              "count-prior KL fwd+bwd (121-step chain)": (count_prior, None),
+              "loss fwd+bwd (the whole model)": (loss, None),
+              "Adam": (state.optimizer.step, None)}
+    for name, (fn, g) in pieces.items():
+        t = graph_ms(fn, g)
+        phase("captured", f"{name}, captured alone: {t:.3f} ms "
+                          f"({t / c:.1%} of the captured step's {c:.3f} ms;"
+                          f" {card})")
+    del state, model
+
+    # (j) a host read in the step: the capture raises, nothing runs eagerly
+    # in its place
+    real_norm = ts.global_norm
+    ts.global_norm = lambda g: real_norm(g) * (real_norm(g).item() > 0)
+    try:
+        state = create_train_state(cfg, device=dev)
+        step = make_train_step(cfg, datagen=datagen, steps_per_call=3)
+        errors = []
+        for _ in range(2):
+            try:
+                step(state)
+            except RuntimeError as e:
+                errors.append(type(e).__name__ + ": "
+                              + str(e).strip().splitlines()[0][:80])
+        torch.cuda.synchronize()
+    finally:
+        ts.global_norm = real_norm
+    phase("captured", f"a .item() injected into the step: both calls raise "
+                      f"({errors}); steps run: {int(state.step)} (the "
+                      f"warm-up)")
+    if len(errors) != 2 or int(state.step) != 1:
+        raise AssertionError("a failed capture ran the step eagerly")
+    phase("captured", f"phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is visible")
@@ -2054,6 +2455,9 @@ def main():
     t_phase = time.perf_counter()
     bench_k = bench_phase(card)
     phase("bench", f"phase 16 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 17. the train step captured as a CUDA graph
+    captured_k = captured_phase(card, dev)
     # each path's own launches, from its own run with the counts set to 0
     # just before it: `launches` is the main path's (phase 9, K1/K2) or the
     # 'pallas_v3' path's (phase 12, K3/K4); `path_launches` those of
@@ -2064,7 +2468,9 @@ def main():
               "train_log_images": images_k[0]},
              {"generative_grad_views": figure_k[1],
               "train_log_images": images_k[1]}, {}, {})
-    for name, counts in bench_k.items():
+    for name, counts in {**bench_k,
+                         **{f"captured_k{CAPTURED_K}_{b}": n
+                            for b, n in captured_k.items()}}.items():
         for path, n in zip(paths, counts):
             if n:
                 path[name] = n

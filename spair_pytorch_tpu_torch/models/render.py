@@ -33,7 +33,7 @@ import torch
 from spair_pytorch_tpu_torch.config import SpairConfig
 from spair_pytorch_tpu_torch.ops.backbone import grid_geometry
 from spair_pytorch_tpu_torch.ops.kernels.composite import (
-    composite, composite_forward, composite_plain)
+    composite, composite_forward, composite_plain, safe_boxes)
 from spair_pytorch_tpu_torch.ops.kernels.composite_v3 import composite_v3
 from spair_pytorch_tpu_torch.ops.math import clamped_sigmoid
 from spair_pytorch_tpu_torch.ops.stn import paste_weights
@@ -114,8 +114,7 @@ def composite_ordered(color, alpha, z_depth_flat, z_where, image_hw,
         def padn(t):
             return torch.cat([t, t.new_zeros((b, pad) + t.shape[2:])], dim=1)
         color, alpha = padn(color), padn(alpha)
-        safe = torch.tensor([0.5, 0.5, 1.0, 1.0], dtype=z_where.dtype,
-                            device=z_where.device).expand(b, pad, 4)
+        safe = safe_boxes(b, pad, z_where.dtype, z_where.device)
         z_where = torch.cat([z_where, safe], dim=1)
     img = torch.zeros((b, c, h, w), dtype=color.dtype, device=color.device)
     trans = torch.ones((b, 1, h, w), dtype=color.dtype, device=color.device)

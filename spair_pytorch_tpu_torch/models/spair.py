@@ -156,9 +156,10 @@ def infer_latents(params, cfg: SpairConfig, x, step, generator=None,
     if cfg.inference_mode == "independent":
         context = params.virtual_edge_element.repeat(
             cfg.context_neighbors).expand(b, n, cfg.context_dim)
-        hw = np.stack(np.unravel_index(np.arange(n), (gh, gw)), -1)
+        cells = torch.arange(n, device=device)  # made on the device: the
+        hw = torch.stack([cells // gw, cells % gw], -1)  # step is captured
         flat = cell_step(params, cfg, geom, x, feat_flat, context, noise_flat,
-                         torch.as_tensor(hw, device=device), tw, dtype)
+                         hw, tw, dtype)
     else:
         flat = _scan_inference(params, cfg, geom, x, feat_flat, noise_flat,
                                tw, dtype, b, gh, gw)

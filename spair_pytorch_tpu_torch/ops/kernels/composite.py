@@ -59,6 +59,14 @@ MAX_SCENES = 65535
 PARAM_BAND_ROWS = 64
 
 
+def safe_boxes(b: int, n: int, dtype, device):
+    """(b, n, 4) copies of the safe box [0.5, 0.5, 1, 1] that padding
+    objects sit on, made on ``device`` without a copy from the host (a
+    captured step may not make one)."""
+    return torch.cat([torch.full((b, n, 2), 0.5, dtype=dtype, device=device),
+                      torch.ones((b, n, 2), dtype=dtype, device=device)], -1)
+
+
 def composite_plain(color, alpha, importance, boxes, image_hw,
                     chunk: int = 16, pres_gate=None, den_floor_n=None,
                     row_keep=None):
@@ -91,8 +99,7 @@ def composite_plain(color, alpha, importance, boxes, image_hw,
         def padn(t):
             return torch.cat([t, t.new_zeros((b, pad) + t.shape[2:])], dim=1)
         color, alpha, importance = map(padn, (color, alpha, importance))
-        safe = torch.tensor([0.5, 0.5, 1.0, 1.0], dtype=f32,
-                            device=boxes.device).expand(b, pad, 4)
+        safe = safe_boxes(b, pad, f32, boxes.device)
         boxes = torch.cat([boxes, safe], dim=1)
         if row_keep is not None:
             row_keep = torch.cat([row_keep, row_keep.new_zeros(

@@ -19,7 +19,9 @@ def exponential_decay(step, sched: Schedule, device=None):
         t = torch.div(step, sched.decay_step, rounding_mode="floor")
     else:
         t = step / sched.decay_step
-    rate = torch.tensor(sched.decay_rate, dtype=torch.float32, device=device)
+    # a fill, not a copy from the host: the step is captured as a CUDA graph
+    rate = torch.full((), sched.decay_rate, dtype=torch.float32,
+                      device=device)
     value = (sched.start - sched.end) * torch.pow(rate, t) + sched.end
     if sched.log_space:
         value = torch.log(value + 1e-6)

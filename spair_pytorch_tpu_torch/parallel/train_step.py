@@ -7,6 +7,13 @@ It updates the ``TrainState`` in place and returns it with its metrics,
 which stay on the device: a step makes no host sync. ``scan_remat`` and
 ``scan_remat_policy`` change memory, not values, and are ignored here.
 
+On a CUDA device the step ``make_train_step`` returns is one captured CUDA
+graph, replayed once a step: K steps a call are K replays of it, as the JAX
+step is one device program with K steps scanned inside
+(``parallel/captured.py``, which also lists the configurations that stay
+eager: the CPU, ``mesh``, ``render_topk`` and the NaN hunter). The CPU runs
+the eager step.
+
 With a ``mesh`` (``parallel/mesh.py``) the step is data parallel:
 ``cfg.batch_size`` is the global batch and each rank trains on its slice.
 Every rank draws the global batch's scenes and noise from a generator in
@@ -32,6 +39,8 @@ from spair_pytorch_tpu_torch.data.sharded import generate_host_local
 from spair_pytorch_tpu_torch.models.latents import (SpairModel, geometry,
                                                     init_params, sample_noise)
 from spair_pytorch_tpu_torch.models.spair import forward
+from spair_pytorch_tpu_torch.parallel.captured import (CapturedStep,
+                                                       eager_reason)
 from spair_pytorch_tpu_torch.parallel.mesh import (Mesh, all_reduce_,
                                                    reduce_metrics)
 from spair_pytorch_tpu_torch.utils.debug import grad_norms_by_head
@@ -50,9 +59,14 @@ class TrainState:
 
 def optimizer(cfg: SpairConfig, model: torch.nn.Module):
     """Adam with torch's defaults as the reference sets them (lr from the
-    config, betas (0.9, 0.999), eps 1e-8). Clipping is done by the step."""
+    config, betas (0.9, 0.999), eps 1e-8). Clipping is done by the step.
+    On CUDA it is ``capturable``: its step count lives on the device, so a
+    CUDA graph can hold the update (a checkpoint's host step count moves
+    there on load)."""
+    capturable = next(model.parameters()).device.type == "cuda"
     return torch.optim.Adam(model.parameters(), lr=cfg.learning_rate,
-                            betas=(0.9, 0.999), eps=1e-8)
+                            betas=(0.9, 0.999), eps=1e-8,
+                            capturable=capturable)
 
 
 def create_train_state(cfg: SpairConfig, seed: Optional[int] = None,
@@ -148,7 +162,7 @@ def train_step(cfg: SpairConfig, state: TrainState, x, gt_bbox=None,
 
 def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
                     with_detection: bool = False, datagen=None,
-                    steps_per_call: int = 1):
+                    steps_per_call: int = 1, eager: bool = False):
     """Returns step(state[, batch]) -> (state, metrics).
 
     ``batch`` is the image tensor, or (x, gt_bbox, gt_count) with
@@ -160,7 +174,15 @@ def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
     ``mesh`` this rank's slice of them, ``data.sharded.generate_host_local``)
     and logs the detection metrics against them. ``steps_per_call`` = K
     (datagen only) runs K steps per call, with the metrics stacked on a
-    leading (K,) axis; it equals K calls of one step."""
+    leading (K,) axis; it equals K calls of one step.
+
+    On a CUDA device the first call runs one step eagerly and captures one
+    step as a CUDA graph; every other step, K a call, is a replay of it,
+    bound to that call's state (``parallel/captured.py``). The step stays
+    eager where ``captured.eager_reason`` gives a reason (the CPU, ``mesh``,
+    ``render_topk``, the NaN hunter), decided at the first call, or when
+    ``eager`` is set: the A/B of the two forms in ``chip_smoke.py`` and the
+    tests."""
     if steps_per_call > 1 and datagen is None:
         raise ValueError("steps_per_call > 1 needs datagen")
 
@@ -176,20 +198,31 @@ def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
                     state.generator, bank, dcfg, cfg.batch_size,
                     mesh.world_size, mesh.rank)
             return train_step(cfg, state, x, gt_bbox, gt_count, mesh=mesh)
-
-        def step_fn(state):
-            if steps_per_call == 1:
-                return state, one_step(state)
-            ms = [one_step(state) for _ in range(steps_per_call)]
-            return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
     elif with_detection:
-        def step_fn(state, batch):
-            x, gt_bbox, gt_count = batch
-            return state, train_step(cfg, state, x, gt_bbox, gt_count,
-                                     mesh=mesh)
+        def one_step(state, x, gt_bbox, gt_count):
+            return train_step(cfg, state, x, gt_bbox, gt_count, mesh=mesh)
     else:
-        def step_fn(state, x):
-            return state, train_step(cfg, state, x, mesh=mesh)
+        def one_step(state, x):
+            return train_step(cfg, state, x, mesh=mesh)
+
+    def eager_steps(state, *batch):
+        if steps_per_call == 1:
+            return state, one_step(state, *batch)
+        ms = [one_step(state) for _ in range(steps_per_call)]
+        return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    run = None  # chosen at the first call, from the state's device
+
+    def step_fn(state, batch=None):
+        nonlocal run
+        if run is None:
+            captured = not eager and eager_reason(
+                cfg, state.step.device, mesh) is None
+            run = (CapturedStep(one_step, steps_per_call) if captured
+                   else eager_steps)
+        if batch is None:
+            return run(state)
+        return run(state, *(batch if with_detection else (batch,)))
     return step_fn
 
 

@@ -6,6 +6,9 @@ Runs ``--warmup`` steps, then ``--steps`` steps under ``torch.profiler``
 chrome JSON (``<out>/trace.json``, for Perfetto or chrome://tracing) beside
 the per-step times of ``utils/debug.py::Benchmark`` (CUDA events on the
 card). Each step's scenes are generated on the device inside its span.
+On the card the step is a captured CUDA graph (``parallel/captured.py``):
+the first warm-up step captures it, and the profiled steps are replays,
+whose trace holds the graph's kernels and no host-side operators.
 
 Usage:
     python -m spair_pytorch_tpu_torch.profile --preset paper128 --steps 5 \\

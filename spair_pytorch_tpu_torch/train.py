@@ -7,7 +7,10 @@ imports) under the reference's tag names, checkpoints every
 every ``eval_every`` steps, and a calibrated detector operating point at the
 end on request. By default scenes are generated on the device from the
 train state's generator, ``steps_per_call`` steps per call; metrics stay on
-the device and reach the host ``log_flush_every`` steps at a time.
+the device and reach the host ``log_flush_every`` steps at a time. On the
+card every step is a replay of one CUDA graph that ``make_train_step``
+captures at its first call, after a restore (``parallel/captured.py``);
+``--mesh`` and ``render_topk`` runs stay eager.
 
 As in the JAX package, ``--data native`` (the C++ generator, ``data/
 native.py``) and ``--hdf5`` (a reference-schema file, ``data/

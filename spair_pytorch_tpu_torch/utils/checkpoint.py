@@ -71,7 +71,14 @@ class CheckpointManager:
         payload = torch.load(os.path.join(self.directory, str(step), _FILE),
                              map_location="cpu", weights_only=True)
         template.model.load_state_dict(payload["model"])
-        template.optimizer.load_state_dict(payload["optimizer"])
+        # Adam stays as the template made it for its device (capturable on
+        # CUDA): a load would take the saved groups' setting, and with it
+        # where the step counts live
+        saved = payload["optimizer"]
+        for group, live in zip(saved["param_groups"],
+                               template.optimizer.param_groups):
+            group["capturable"] = live["capturable"]
+        template.optimizer.load_state_dict(saved)
         template.generator.set_state(payload["generator"])
         template.step.fill_(payload["step"])
         return template

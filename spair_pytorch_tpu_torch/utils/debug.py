@@ -78,6 +78,13 @@ def enable_debug_nans(on: bool = True):
         _DEBUG_NANS = None
 
 
+def host_checks_on() -> bool:
+    """Whether the NaN hunter or the whole-program NaN check is on: both
+    read flags on the host, so a step with either on is not captured
+    (``parallel/captured.py``)."""
+    return _NAN_HUNTING or _DEBUG_NANS is not None
+
+
 def nan_hunter(location: str, **tensors):
     """If the hunter is on and any watched tensor holds a NaN, print every
     watched tensor and raise FloatingPointError naming ``location`` and

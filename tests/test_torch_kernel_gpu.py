@@ -769,3 +769,261 @@ def test_bench_check_passes_on_the_card(cuda):
         assert res[k] < bar, (k, res[k])
     assert torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+# the train step captured as a CUDA graph (parallel/captured.py), at the
+# main path's widths: paper128, b128, bf16, wavefront, gate 0.01
+
+def main_path(backend="auto", **kw):
+    """(config, datagen) of the main path through ``backend``."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.data import DataConfig, glyph_bank
+
+    cfg = PRESETS["paper128"](batch_size=128, inference_mode="wavefront",
+                              compute_dtype="bfloat16",
+                              pres_gate_threshold=0.01,
+                              render_backend=backend, **kw)
+    bank = torch.as_tensor(glyph_bank((14, 14)), device="cuda")
+    return cfg, (DataConfig(image_hw=cfg.image_shape[1:],
+                            min_objects=cfg.min_scene_objects,
+                            max_objects=cfg.max_scene_objects), bank)
+
+
+@pytest.fixture
+def deterministic(cuda):
+    """Deterministic kernels (cuDNN's and PyTorch's), so that two runs of
+    the same steps can be compared bit for bit."""
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield cuda
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+
+
+def state_tensors(state):
+    """The step, every parameter and every tensor of Adam's state."""
+    return ([state.step] + list(state.model.parameters())
+            + [v for s in state.optimizer.state.values()
+               for v in s.values() if torch.is_tensor(v)])
+
+
+def counted():
+    return (K.composite_forward, K.composite_backward,
+            V.composite_v3_forward, V.composite_v3_backward)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["auto", "pallas_v3"])
+def test_captured_step_equals_eager(deterministic, backend):
+    """5 calls of one step and one call of K = 5, captured against eager
+    from the same state: every metric of every step, every parameter,
+    Adam's state, the step and the generator, bit for bit. The K = 5 call
+    launches each kernel of the path 5 times, counted over the replays."""
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+
+    cfg, datagen = main_path(backend)
+    runs = {}
+    for eager in (True, False):
+        state = create_train_state(cfg, device="cuda")
+        one = make_train_step(cfg, datagen=datagen, eager=eager)
+        five = make_train_step(cfg, datagen=datagen, steps_per_call=5,
+                               eager=eager)
+        metrics = [one(state)[1] for _ in range(5)]
+        five(state)  # the captured step's warm-up and capture
+        before = [fn.launches for fn in counted()]
+        metrics.append(five(state)[1])
+        torch.cuda.synchronize()
+        launches = [fn.launches - n for fn, n in zip(counted(), before)]
+        want = [5, 5, 0, 0] if backend == "auto" else [0, 0, 5, 5]
+        assert launches == want, (eager, launches)
+        runs[eager] = state, metrics
+    (e, me), (c, mc) = runs[True], runs[False]
+    assert int(c.step) == 15
+    for got, want in zip(mc, me):
+        assert list(got) == list(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    for got, want in zip(state_tensors(c), state_tensors(e)):
+        assert torch.equal(got, want)
+    assert torch.equal(c.generator.get_state(), e.generator.get_state())
+
+
+@pytest.mark.gpu
+def test_captured_replays_draw_new_scenes(cuda, monkeypatch):
+    """The scenes each replay draws (copied out of the graph by a spy on
+    the step's scene generator): every step's differ from the last one's,
+    and they are the scenes the eager step draws, step for step."""
+    import importlib
+
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+
+    ts = importlib.import_module("spair_pytorch_tpu_torch.parallel."
+                                 "train_step")
+    cfg, datagen = main_path()
+    real = ts.generate_batch
+    seen = torch.zeros((cfg.batch_size, 1, 128, 128), device="cuda")
+
+    def spy(*args):
+        x, gt_bbox, gt_count = real(*args)
+        seen.copy_(x)
+        return x, gt_bbox, gt_count
+    monkeypatch.setattr(ts, "generate_batch", spy)
+    scenes = {}
+    for eager in (True, False):
+        state = create_train_state(cfg, device="cuda")
+        step = make_train_step(cfg, datagen=datagen, eager=eager)
+        scenes[eager] = []
+        for _ in range(4):
+            step(state)
+            scenes[eager].append(seen.clone())
+    for a, b in zip(scenes[False], scenes[False][1:]):
+        assert not torch.equal(a, b)
+    for a, b in zip(scenes[False], scenes[True]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_captured_metrics_are_fresh(cuda):
+    """Metrics a call returns are not overwritten by the next call: each
+    call's are new tensors, 0-d for K = 1 and (K,) for K = 3."""
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+
+    cfg, datagen = main_path()
+    for k in (1, 3):
+        state = create_train_state(cfg, device="cuda")
+        step = make_train_step(cfg, datagen=datagen, steps_per_call=k)
+        calls = [step(state)[1] for _ in range(3)]
+        kept = [{n: v.clone() for n, v in m.items()} for m in calls]
+        step(state)
+        torch.cuda.synchronize()
+        for m, held in zip(calls, kept):
+            assert all(v.shape == (() if k == 1 else (k,))
+                       for v in m.values())
+            assert all(torch.equal(m[n], held[n]) for n in m)
+        losses = [m["losses/total"].reshape(-1)[0] for m in calls]
+        assert len({float(x) for x in losses}) == 3
+        assert calls[1]["losses/total"].data_ptr() != \
+            calls[2]["losses/total"].data_ptr()
+
+
+@pytest.mark.gpu
+def test_captured_step_is_bound_to_its_state(cuda):
+    """A captured step called with another state, or after Adam's state
+    was loaded from new tensors, raises; after the parameters were loaded
+    (copied in place) it runs."""
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+
+    cfg, datagen = main_path()
+    state = create_train_state(cfg, device="cuda")
+    step = make_train_step(cfg, datagen=datagen)
+    step(state)
+    step(state)
+    other = create_train_state(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="bound to the state"):
+        step(other)
+    state.model.load_state_dict(state.model.state_dict())  # copies in place
+    step(state)
+    saved = state.optimizer.state_dict()
+    saved["state"] = {i: {k: v.clone() for k, v in s.items()}
+                      for i, s in saved["state"].items()}
+    state.optimizer.load_state_dict(saved)  # new tensors
+    with pytest.raises(RuntimeError, match="bound to the state"):
+        step(state)
+    assert int(state.step) == 3
+
+
+@pytest.mark.gpu
+def test_a_checkpoint_with_a_host_step_count_restores_and_captures(
+        cuda, tmp_path):
+    """A checkpoint written with the earlier, non-capturable Adam (its step
+    count a host tensor) restores into the capturable one, the count on
+    the card, and the restored state trains captured."""
+    from spair_pytorch_tpu_torch.parallel import (TrainState,
+                                                  create_train_state,
+                                                  make_train_step)
+    from spair_pytorch_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cfg, datagen = main_path()
+    old = create_train_state(cfg, device="cuda")
+    old = TrainState(step=old.step, model=old.model,
+                     optimizer=torch.optim.Adam(
+                         old.model.parameters(), lr=cfg.learning_rate,
+                         betas=(0.9, 0.999), eps=1e-8),
+                     generator=old.generator)
+    make_train_step(cfg, datagen=datagen, eager=True)(old)
+    counts = [s["step"] for s in old.optimizer.state.values()]
+    assert all(c.device.type == "cpu" for c in counts)
+    ckpt = CheckpointManager(str(tmp_path))
+    ckpt.save(old)
+    state = ckpt.restore(create_train_state(cfg, device="cuda"))
+    assert all(g["capturable"] for g in state.optimizer.param_groups)
+    assert all(s["step"].device.type == "cuda" and float(s["step"]) == 1
+               for s in state.optimizer.state.values())
+    step = make_train_step(cfg, datagen=datagen, steps_per_call=3)
+    _, m = step(state)
+    _, m = step(state)
+    assert int(state.step) == 7
+    assert bool(torch.isfinite(m["losses/total"]).all())
+
+
+@pytest.mark.gpu
+def test_resumed_captured_train_equals_an_uninterrupted_one(deterministic,
+                                                            tmp_path):
+    """train() of 4 steps (2 a call) against 2 steps, a resume from the
+    checkpoint (then a new capture) and 2 more: logged losses, parameters,
+    Adam's state, generator and step bit for bit."""
+    import json
+
+    from spair_pytorch_tpu_torch.train import train
+
+    cfg, _ = main_path()
+    run = dict(checkpoint_every=2, steps_per_call=2, digits="font",
+               verbose=False, device="cuda")
+
+    def losses(d):
+        with open(tmp_path / d / "metrics.jsonl") as f:
+            return {r["step"]: r["losses/total"] for r in map(json.loads, f)
+                    if "losses/total" in r}
+    whole = train(cfg, steps=4, logdir=str(tmp_path / "a"), **run)
+    train(cfg, steps=2, logdir=str(tmp_path / "b"), **run)
+    split = train(cfg, steps=2, logdir=str(tmp_path / "b"), **run)
+    assert losses("a") == losses("b") and len(losses("a")) == 4
+    for got, want in zip(state_tensors(split), state_tensors(whole)):
+        assert torch.equal(got, want)
+    assert torch.equal(split.generator.get_state(),
+                       whole.generator.get_state())
+
+
+@pytest.mark.gpu
+def test_a_host_read_in_the_step_makes_the_capture_raise(cuda, monkeypatch):
+    """A host read injected into the step: the warm-up step runs it
+    eagerly, the capture raises, and the step is not run eagerly instead,
+    then or at a later call. Last in the file: it leaves a failed capture
+    behind."""
+    import importlib
+
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+
+    ts = importlib.import_module("spair_pytorch_tpu_torch.parallel."
+                                 "train_step")
+    real = ts.global_norm
+    monkeypatch.setattr(ts, "global_norm",
+                        lambda g: real(g) * (real(g).item() > 0))
+    cfg, datagen = main_path()
+    state = create_train_state(cfg, device="cuda")
+    step = make_train_step(cfg, datagen=datagen, steps_per_call=3)
+    launches = [fn.launches for fn in counted()]
+    with pytest.raises(RuntimeError):
+        step(state)
+    torch.cuda.synchronize()
+    assert int(state.step) == 1
+    assert [fn.launches for fn in counted()] == [
+        launches[0] + 1, launches[1] + 1, *launches[2:]]
+    with pytest.raises(RuntimeError, match="capture failed"):
+        step(state)
+    assert int(state.step) == 1

@@ -10,7 +10,9 @@ writes its final parameters, its logged losses and its ms/step to
 steps without a mesh and holds itself against that file: each step's loss
 (the ranks' losses summed, as the mesh logs it) and each parameter tensor,
 as max |mesh - one| / max |one|, and prints both ms/step (host clock
-around train(), set-up included).
+around train(), set-up included). On the card the one-process run's step
+is a captured CUDA graph (``parallel/captured.py``) and the mesh run's is
+eager.
 
 TF32 is off. ``--dtype float32`` (the default) makes the comparison tight;
 ``--dtype bfloat16`` is the main path's compute type.
