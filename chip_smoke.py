@@ -5,9 +5,10 @@ Drives the port's serving path, its training step, its training entry
 point through the banded compositor ('pallas_v3') at paper128 width, the
 model options of three more presets, the host data inputs, int8 serving,
 data-parallel training (world size 1) and the tools, split refinement and
-the figure path, the benchmark entry point, and the train step captured as
-a CUDA graph against the eager step, on one CUDA card, with random weights
-from the preset's seed:
+the figure path, the benchmark entry point, the train step captured as a
+CUDA graph against the eager step, and the forward programs (detector,
+eval step, evaluate, calibrate) captured against eager, on one CUDA card,
+with random weights from the preset's seed:
 
   1. device     the card's name and power limit (nvidia-smi);
   2. build      compiles csrc/composite_fwd.cu (K1, and K3 as its banded
@@ -150,15 +151,37 @@ from the preset's seed:
                 call of a captured step (warm-up and capture) beside an
                 eager step; (i) a resumed train() against an uninterrupted
                 one; (j) a .item() injected into the step makes the capture
-                raise, and no step runs eagerly in its place.
+                raise, and no step runs eagerly in its place (run last,
+                after phase 18: a failed capture leaves the generators
+                registered with it mid-capture).
+ 18. forward    the forward programs captured as CUDA graphs
+                (parallel/captured.py::CapturedForward) against eager: (a)
+                the paper128 detector at B = 1, 8, 32 and 128 in f32 and at
+                B=32 with bf16 compute and int8 weights, NMS off and at 0.5:
+                boxes, scores, count and z_depth bit for bit, ms/call and
+                img/s in turns, each first call (eager run and capture), the
+                device's busy share of one captured call, the N-sweep NMS's
+                device time at B=32 and B=128 against the eager early exit,
+                and DetectorServer with buckets (1, 8, 32, 128) and NMS 0.5:
+                each bucket's capture in warmup, reserved memory before and
+                after, 64 requests against the eager detector; (b)
+                make_eval_step at B=32 through 'auto' (K1) and 'pallas_v3'
+                (K3): loss and every aux tensor bit for bit over 3 calls,
+                the kernel's launches over 3 replays, ms in turns; (c)
+                evaluate(batches=4) with a calibrated NMS and
+                calibrate(batches=2): captured equal to eager, a second
+                captured call (the same capture, re-seeded) equal too, and
+                their wall times; (d) last, after 17(j): a .item()
+                injected into the detector's NMS makes its capture raise,
+                and a second call raises without running.
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
 cuDNN convs in full f32), so kernels and plain versions are compared on the
 same arithmetic. The last two lines are a JSON summary of the kernels and
 the result line {"ok": true, "device": {...}}. A kernel's "launches" there
 are its own path's, K1/K2 from phase 9 and K3/K4 from phase 12, and its
-"path_launches" those of phase 15's, phase 16's and phase 17's paths, each
-read from its own run. Launches of a captured step are counted over its
+"path_launches" those of phase 15's to phase 18's paths, each read from
+its own run. Launches of a captured step or program are counted over its
 replays.
 
     python3 chip_smoke.py              # on a machine with a CUDA card
@@ -383,9 +406,10 @@ def profiled(fn):
     return wall, busy, sum(e.count for e in device_rows), events
 
 
-def profile_eval(cfg, params, x, step, eval_step, card):
+def profile_eval(cfg, params, x, step, eval_step, gen, card):
     """Per-layer times of one eval step (CUDA events, each layer run alone
-    and synchronized) and the device-busy share from torch.profiler."""
+    and synchronized) and the device-busy share from torch.profiler;
+    ``gen`` is the generator the (captured) eval step is bound to."""
     from spair_pytorch_tpu_torch.models.infer import nms_keep_batch
     from spair_pytorch_tpu_torch.models.kl import (count_prior_kl,
                                                    independent_kl)
@@ -393,7 +417,6 @@ def profile_eval(cfg, params, x, step, eval_step, card):
     from spair_pytorch_tpu_torch.models.spair import (infer_latents,
                                                       loss_and_metrics)
 
-    gen = torch.Generator(device=x.device).manual_seed(4)
     with torch.no_grad():
         z = infer_latents(params, cfg, x, step, gen)
         kls = independent_kl(z["posterior"], z["z_pres"], cfg)
@@ -2253,7 +2276,254 @@ def captured_phase(card, dev):
                           f" {card})")
     del state, model
 
-    # (j) a host read in the step: the capture raises, nothing runs eagerly
+    phase("captured", f"phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+
+# phase 18: the forward programs captured as CUDA graphs
+# (parallel/captured.py::CapturedForward)
+DET_BUCKETS = (1, 8, 32, 128)
+DET_KEYS = ("boxes", "scores", "count", "z_depth")
+
+
+def same_tree(a, b):
+    """(leaves equal bit for bit, leaves) of two trees of tensors."""
+    from torch.utils._pytree import tree_flatten
+    pairs = list(zip(tree_flatten(a)[0], tree_flatten(b)[0]))
+    return sum(torch.equal(x, y) for x, y in pairs), len(pairs)
+
+
+def host_timed(fn):
+    """(fn(), host seconds to the end of its device work)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def forward_phase(card, dev):
+    """Phase 18: the detector, the eval step, evaluate and calibrate
+    captured against eager. Returns the K1-K4 launches of the captured
+    eval paths, each read from its own run with the counts set to 0 just
+    before it."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.data import generate_batch, glyph_bank
+    from spair_pytorch_tpu_torch.eval import calibrate, evaluate
+    from spair_pytorch_tpu_torch.models import init_params
+    from spair_pytorch_tpu_torch.models.infer import (make_detector,
+                                                      nms_keep_batch)
+    from spair_pytorch_tpu_torch.ops.quant import quantize_params_int8
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_eval_step)
+    from spair_pytorch_tpu_torch.serve import DetectorServer
+    from spair_pytorch_tpu_torch.train import data_config
+
+    t_phase = time.perf_counter()
+    api = sorted(f"{where}.{n}" for where, names in (
+        ("CUDAGraph", dir(torch.cuda.CUDAGraph)),
+        ("torch.cuda.graphs", dir(torch.cuda.graphs)),
+        ("torch._C", [n for n in dir(torch._C) if "graph" in n.lower()]))
+        for n in names if any(w in n.lower() for w in (
+            "conditional", "while", "if_node")))
+    phase("forward", f"torch {torch.__version__}, CUDA {torch.version.cuda}"
+                     f": CUDA graph conditional or while nodes exposed to "
+                     f"Python: {api or 'none'}; the captured NMS runs a "
+                     f"fixed N sweeps")
+    cfg = PRESETS["paper128"]()
+    params = init_params(cfg, device=dev)
+    qparams = quantize_params_int8(params)
+    dcfg = data_config(cfg)
+    bank = torch.as_tensor(glyph_bank(dcfg.patch_hw), device=dev)
+    xs = {b: generate_batch(torch.Generator(device=dev).manual_seed(180 + b),
+                            bank, b, dcfg)[0] for b in DET_BUCKETS}
+
+    # (a) the detector captured against eager, NMS off and at 0.5
+    arms = [(f"f32 B={b}", cfg, params, b) for b in DET_BUCKETS] + [
+        ("bf16 B=32", dataclasses.replace(cfg, compute_dtype="bfloat16"),
+         params, 32), ("int8 B=32", cfg, qparams, 32)]
+    det_ms, kept = {}, None
+    for name, c, p, b in arms:
+        for nms in (None, 0.5):
+            x = xs[b]
+            eager = make_detector(c, nms_iou=nms, eager=True)
+            captured = make_detector(c, nms_iou=nms)
+            _, first = host_timed(lambda: captured(p, x))
+            got, want = captured(p, x), eager(p, x)
+            equal = [k for k in DET_KEYS if torch.equal(got[k], want[k])]
+            t = [cuda_ms(lambda: f(p, x), n, warmup=1) for f, n in (
+                (eager, 3), (captured, 10), (captured, 10), (eager, 3))]
+            e, g = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            det_ms[name, nms] = e, g
+            phase("forward", f"detector {name}, NMS {nms}: captured against"
+                             f" eager, {len(equal)} of {len(DET_KEYS)} "
+                             f"outputs ({', '.join(equal)}) equal bit for "
+                             f"bit; eager {t[0]:.3f}, {t[3]:.3f} against "
+                             f"captured {t[1]:.3f}, {t[2]:.3f} ms/call in "
+                             f"turns ({e / g:.2f}x; {b / g * 1e3:.1f} "
+                             f"against {b / e * 1e3:.1f} img/s); first call"
+                             f" (eager run and capture) {first:.3f} s "
+                             f"({card})")
+            if len(equal) != len(DET_KEYS):
+                raise AssertionError(f"captured detector {name}, NMS {nms}"
+                                     f" differs from eager")
+            if name == "f32 B=32" and nms is None:
+                kept = (captured, p, x, g)
+    fn, p, x, g = kept
+    wall, busy, n_kernels, events = profiled(lambda: fn(p, x))
+    phase("forward", f"one captured f32 B=32 detector call under the "
+                     f"profiler: {wall:.3f} ms wall, device busy "
+                     f"{busy:.3f} ms ({busy / wall:.1%} of that wall, "
+                     f"{busy / g:.1%} of the unprofiled {g:.3f} ms), "
+                     f"{n_kernels} device kernels ({card})")
+    print(events.table(sort_by="self_device_time_total", row_limit=8),
+          flush=True)
+    for b in (32, 128):
+        out = make_detector(cfg, eager=True)(params, xs[b])
+        boxes, scores = out["boxes"], out["scores"]
+        fixed = graph_ms(lambda: nms_keep_batch(boxes, scores, 0.5,
+                                                early_exit=False))
+        early = cuda_ms(lambda: nms_keep_batch(boxes, scores, 0.5), 5)
+        on, off = det_ms[f"f32 B={b}", 0.5][1], det_ms[f"f32 B={b}", None][1]
+        phase("forward", f"NMS 0.5 at B={b}: the {N} sweeps captured alone"
+                         f" {fixed:.3f} ms of device time; the eager early "
+                         f"exit {early:.3f} ms (CUDA events, host reads "
+                         f"included); captured detector with NMS {on:.3f} "
+                         f"against without {off:.3f} ms ({card})")
+
+    # the server: every bucket captured at warmup into one memory pool
+    gib = 2.0 ** 30
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(dev)
+    server = DetectorServer(cfg, params, batch_sizes=DET_BUCKETS,
+                            nms_iou=0.5)
+    seconds = server.warmup()
+    after = torch.cuda.memory_reserved(dev)
+    requests = generate_batch(torch.Generator(device=dev).manual_seed(18),
+                              bank, 64, dcfg)[0]
+    dets, dt = host_timed(lambda: server.detect(requests))
+    padded = torch.cat([requests, requests.new_zeros((64,) + tuple(
+        requests.shape[1:]))])
+    want = make_detector(cfg, nms_iou=0.5, eager=True)(params, padded)
+    scores = want["scores"].cpu().numpy()
+    same = sum(d["count"] == int((scores[i] >= 0.5).sum())
+               and (d["scores"] == scores[i][scores[i] >= 0.5]).all()
+               for i, d in enumerate(dets))
+    phase("forward", f"DetectorServer buckets {DET_BUCKETS}, NMS 0.5: "
+                     f"warmup captures each in "
+                     + ", ".join(f"{b}: {v:.3f} s" for b, v in
+                                 seconds.items())
+                     + f"; reserved {before / gib:.3f} GiB before warmup, "
+                     f"{after / gib:.3f} GiB after; 64 requests in "
+                     f"{dt * 1e3:.1f} ms ({64 / dt:.1f} img/s, host clock, "
+                     f"bucket 128); {same} of 64 equal to the eager "
+                     f"detector's ({card})")
+    if len(dets) != 64 or same != 64:
+        raise AssertionError("the captured server's answers differ")
+    del server
+
+    # (b) the eval step captured against eager: K1 ('auto') or K3
+    # ('pallas_v3') inside
+    launches = {}
+    x = xs[32]
+    for backend, k in (("auto", 0), ("pallas_v3", 2)):
+        c = dataclasses.replace(cfg, render_backend=backend)
+        runs = {}
+        with Deterministic():
+            for eager in (True, False):
+                step = make_eval_step(c, eager=eager)
+                gen = torch.Generator(device=dev).manual_seed(7)
+                runs[eager] = [step(params, x, 1500, gen) for _ in range(3)]
+        equal, total = same_tree(runs[False], runs[True])
+        losses = [float(r[0]) for r in runs[False]]
+        step = make_eval_step(c)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        step(params, x, 1500, gen)
+        for fn in counted_kernels():
+            fn.launches = 0
+        for _ in range(3):
+            step(params, x, 1500, gen)
+        torch.cuda.synchronize()
+        launches[f"captured_eval_{backend}"] = [
+            fn.launches for fn in counted_kernels()]
+        eager_step = make_eval_step(c, eager=True)
+        t = [cuda_ms(lambda: f(params, x, 1500, gen), n, warmup=1)
+             for f, n in ((eager_step, 3), (step, 10), (step, 10),
+                          (eager_step, 3))]
+        e, g = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        phase("forward", f"eval step {backend} B=32 f32: captured against "
+                         f"eager over 3 calls (deterministic kernels): "
+                         f"{equal} of {total} tensors (loss and every aux "
+                         f"tensor) equal bit for bit, losses {losses}; "
+                         f"launches K1-K4 of 3 replays "
+                         f"{launches[f'captured_eval_{backend}']}; eager "
+                         f"{t[0]:.3f}, {t[3]:.3f} against captured "
+                         f"{t[1]:.3f}, {t[2]:.3f} ms/call in turns "
+                         f"({e / g:.2f}x; {card})")
+        want = [0, 0, 0, 0]
+        want[k] = 3
+        if equal != total or len(set(losses)) != 3:
+            raise AssertionError(f"captured eval step {backend} differs")
+        if launches[f"captured_eval_{backend}"] != want:
+            raise AssertionError(f"eval step {backend}: launches "
+                                 f"{launches[f'captured_eval_{backend}']}")
+
+    # (c) evaluate and calibrate captured against eager; the second
+    # captured evaluate reuses the first's capture, re-seeded
+    state = create_train_state(cfg, device=dev)
+    kw = dict(digits="font", det_threshold=0.5, det_nms=0.5)
+    (want, _, _), t_e = host_timed(lambda: evaluate(cfg, state, 4,
+                                                    eager=True, **kw))
+    (got, _, _), t_1 = host_timed(lambda: evaluate(cfg, state, 4, **kw))
+    for fn in counted_kernels():
+        fn.launches = 0
+    (again, _, _), t_2 = host_timed(lambda: evaluate(cfg, state, 4, **kw))
+    launches["captured_evaluate"] = [fn.launches for fn in counted_kernels()]
+    phase("forward", f"evaluate(batches=4) B=32, calibrated NMS 0.5: "
+                     f"captured equal to eager {got == want}, twice with "
+                     f"one seed equal {again == got}; eager {t_e:.3f} s, "
+                     f"captured {t_1:.3f} s (first call, 1 capture), "
+                     f"{t_2:.3f} s (the same capture, re-seeded); launches "
+                     f"K1-K4 of the second {launches['captured_evaluate']} "
+                     f"(host clock; {card})")
+    if not (got == want == again):
+        raise AssertionError(f"captured evaluate differs: {got} {want} "
+                             f"{again}")
+    cal_want, c_e = host_timed(lambda: calibrate(cfg, state, 2,
+                                                 digits="font", eager=True))
+    cal, c_1 = host_timed(lambda: calibrate(cfg, state, 2, digits="font"))
+    cal_2, c_2 = host_timed(lambda: calibrate(cfg, state, 2, digits="font"))
+    phase("forward", f"calibrate(batches=2) B=32: captured equal to eager "
+                     f"{cal == cal_want}, again {cal_2 == cal}; eager "
+                     f"{c_e:.3f} s, captured {c_1:.3f} s (4 captures), "
+                     f"{c_2:.3f} s (reused) (host clock; {card})")
+    if not (cal == cal_want == cal_2):
+        raise AssertionError("captured calibrate differs")
+    phase("forward", f"phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def failed_capture_phase(dev):
+    """Phases 17(j) and 18(d), last in the run since each leaves a failed
+    capture behind: a host read injected into the captured train step and
+    into the captured detector makes each capture raise, and nothing runs
+    eagerly in its place."""
+    import importlib
+
+    from spair_pytorch_tpu_torch.data import glyph_bank
+    from spair_pytorch_tpu_torch.models import infer, init_params
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+    from spair_pytorch_tpu_torch.train import data_config
+
+    ts = importlib.import_module("spair_pytorch_tpu_torch.parallel."
+                                 "train_step")
+    cfg = main_path_config()
+    datagen = (data_config(cfg), torch.as_tensor(glyph_bank((14, 14)),
+                                                 device=dev))
+    # 17(j) a host read in the step: the capture raises, nothing runs eagerly
     # in its place
     real_norm = ts.global_norm
     ts.global_norm = lambda g: real_norm(g) * (real_norm(g).item() > 0)
@@ -2275,8 +2545,34 @@ def captured_phase(card, dev):
                       f"warm-up)")
     if len(errors) != 2 or int(state.step) != 1:
         raise AssertionError("a failed capture ran the step eagerly")
-    phase("captured", f"phase 17 in {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    # 18(d) the same in the detector's NMS: the warm-up runs, the capture
+    # raises, a second call raises without running
+    real_iou = infer.pairwise_iou
+    infer.pairwise_iou = lambda b: real_iou(b) * (real_iou(b).sum().item()
+                                                  > -1)
+    try:
+        c = dataclasses.replace(cfg, compute_dtype="float32")
+        params = init_params(c, device=dev)
+        # from a generator of its own: the failed capture of the step left
+        # the ones registered with it (the default generator among them)
+        # mid-capture
+        x = torch.rand((8, 1) + tuple(c.image_shape[1:]), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+        detect = infer.make_detector(c, nms_iou=0.5)
+        errors = []
+        for _ in range(2):
+            try:
+                detect(params, x)
+            except RuntimeError as e:
+                errors.append(type(e).__name__ + ": "
+                              + str(e).strip().splitlines()[0][:80])
+        torch.cuda.synchronize()
+    finally:
+        infer.pairwise_iou = real_iou
+    phase("forward", f"a .item() injected into the detector's NMS: both "
+                     f"calls raise ({errors})")
+    if len(errors) != 2 or "capture failed" not in errors[1]:
+        raise AssertionError("a failed detector capture ran eagerly")
 
 
 def main():
@@ -2411,7 +2707,7 @@ def main():
     phase("time", f"detector B=32: {d_ms:.3f} ms/call, "
                   f"{B / d_ms * 1e3:.1f} img/s ({card})")
 
-    profile_eval(cfg, params, x, step, eval_auto, card)
+    profile_eval(cfg, params, x, step, eval_auto, gen, card)
 
     # 7. backward kernel against its plain version
     bwd_abs_err = backward_phase(K, dev)
@@ -2458,6 +2754,10 @@ def main():
 
     # 17. the train step captured as a CUDA graph
     captured_k = captured_phase(card, dev)
+
+    # 18. the forward programs captured as CUDA graphs
+    forward_k = forward_phase(card, dev)
+    failed_capture_phase(dev)
     # each path's own launches, from its own run with the counts set to 0
     # just before it: `launches` is the main path's (phase 9, K1/K2) or the
     # 'pallas_v3' path's (phase 12, K3/K4); `path_launches` those of
@@ -2470,7 +2770,8 @@ def main():
               "train_log_images": images_k[1]}, {}, {})
     for name, counts in {**bench_k,
                          **{f"captured_k{CAPTURED_K}_{b}": n
-                            for b, n in captured_k.items()}}.items():
+                            for b, n in captured_k.items()},
+                         **forward_k}.items():
         for path, n in zip(paths, counts):
             if n:
                 path[name] = n

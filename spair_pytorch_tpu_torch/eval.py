@@ -12,6 +12,15 @@ reads.
 ``--figure PATH`` writes the renderer-analysis panel of the last evaluated
 batch (``utils/viz.py``; needs matplotlib).
 
+On a CUDA device each batch of ``evaluate`` is one captured CUDA graph
+(forward, the match tables at the four AP thresholds, the metrics, the
+detector and the calibrated NMS), and so is each NMS setting's batch of
+``calibrate``: the counterparts of the JAX package's jitted ``run``s. The
+host reads (``.cpu()``, ``average_precision``) follow each replay. The
+captures are kept by model, so the evaluations ``train()`` runs every
+``eval_every`` steps reuse one; ``evaluate`` re-seeds the generator
+registered with it at each call (``parallel/captured.py``).
+
 Usage, on a machine with a CUDA card:
     python -m spair_pytorch_tpu_torch.eval --logdir runs/paper128 --batches 16
 """
@@ -22,6 +31,8 @@ import argparse
 import dataclasses
 import json
 import os
+import weakref
+from functools import partial
 
 import numpy as np
 import torch
@@ -30,6 +41,8 @@ from spair_pytorch_tpu_torch import metrics as metric
 from spair_pytorch_tpu_torch.config import PRESETS, config_from_json
 from spair_pytorch_tpu_torch.models.infer import detect, nms_keep_batch
 from spair_pytorch_tpu_torch.models.spair import forward
+from spair_pytorch_tpu_torch.parallel.captured import (CapturedForward,
+                                                       forward_eager_reason)
 from spair_pytorch_tpu_torch.parallel.train_step import create_train_state
 
 AP_THRESHOLDS = (0.3, 0.4, 0.5, 0.6)
@@ -47,54 +60,103 @@ def _data(cfg, data, seed, digits, device):
     return iter(make_data(cfg, seed=seed, digits=digits, device=device))
 
 
+# the captured programs of evaluate and calibrate, by model: the memory
+# pool the model's programs share, and a CapturedForward for each program
+# and its options (the device, the config, the thresholds)
+_CAPTURES = weakref.WeakKeyDictionary()
+
+
+def _captured(model, key, program, draws: bool = False):
+    """The captured ``program`` of ``model`` under ``key``, made at its
+    first use; with ``draws``, ``program`` takes a ``generator`` and gets
+    one of its own, registered with its graphs."""
+    if model not in _CAPTURES:
+        _CAPTURES[model] = {"pool": torch.cuda.graph_pool_handle(),
+                            "programs": {}}
+    entry = _CAPTURES[model]
+    if key not in entry["programs"]:
+        gen = None
+        if draws:
+            gen = torch.Generator(device=next(model.parameters()).device)
+            program = partial(program, generator=gen)
+        entry["programs"][key] = CapturedForward(program, generator=gen,
+                                                 pool=entry["pool"])
+    return entry["programs"][key]
+
+
+def _eval_batch(params, x, gt_bbox, gt_count, step, *, cfg, generator,
+                det_threshold, det_nms, early_exit):
+    """One batch of ``evaluate``, all on the device: (the metric dict, the
+    match tables (scores, tp, n_gt) at each AP threshold, forward's aux)."""
+    img_size = cfg.image_shape[-1]
+    _, aux = forward(params, cfg, x, step, generator)
+    z_where, z_pres = aux["z_where"], aux["z_pres"]
+    tables = tuple(metric.match_predictions(z_where, z_pres, gt_bbox,
+                                            gt_count, img_size,
+                                            iou_threshold=t)
+                   for t in AP_THRESHOLDS)
+    det = detect(params, x, cfg, early_exit=early_exit)
+    gt = gt_count[:, 0]
+    m = {
+        "bbox_average_precision": metric.mAP(
+            z_where, z_pres, gt_bbox, gt_count, img_size),
+        "bbox_ap_center": metric.mAP_center(
+            z_where, z_pres, gt_bbox, gt_count, img_size),
+        "object_count_error": metric.object_count_error(z_pres, gt_count),
+        "count_exact_accuracy": metric.count_accuracy(z_pres, gt_count),
+        "det_count_acc_50": torch.mean(
+            (det["count"] == gt).to(torch.float32)),
+        "det_count_acc_70": torch.mean(
+            (torch.sum(det["scores"] >= 0.7, dim=-1) == gt)
+            .to(torch.float32)),
+    }
+    if det_threshold is not None:
+        # the calibrated operating point, measured on other scenes than
+        # the calibration's (the seeds differ)
+        scores = det["scores"]
+        if det_nms is not None:
+            scores = scores * nms_keep_batch(det["boxes"], scores, det_nms,
+                                             early_exit=early_exit)
+        m["det_count_acc_cal"] = torch.mean(
+            (torch.sum(scores >= det_threshold, dim=-1) == gt)
+            .to(torch.float32))
+    return m, tables, aux
+
+
 @torch.no_grad()
 def evaluate(cfg, state, batches: int = 32, data=None, seed: int = 1234,
-             digits: str = "auto", det_threshold=None, det_nms=None):
+             digits: str = "auto", det_threshold=None, det_nms=None,
+             eager: bool = False):
     """Metrics of ``state`` over ``batches`` batches of ``data`` (an
     iterable of (x, gt_bbox, gt_count) on the state's device; scenes from
     ``seed`` when omitted). The forward draws its noise from a generator
     seeded with ``seed``. Returns (result, aux of the last batch, x of the
-    last batch); result has the JAX package's keys."""
+    last batch); result has the JAX package's keys.
+
+    On a CUDA device each batch is a replay of the model's captured batch
+    program (module docstring), unless ``forward_eager_reason`` gives a
+    reason or ``eager`` is set."""
     device = state.step.device
     data = _data(cfg, data, seed, digits, device)
-    img_size = cfg.image_shape[-1]
-    gen = torch.Generator(device=device).manual_seed(seed)
+    options = dict(cfg=cfg, det_threshold=det_threshold, det_nms=det_nms)
+    if eager or forward_eager_reason(cfg, device) is not None:
+        gen = torch.Generator(device=device)
+        run = partial(_eval_batch, generator=gen, early_exit=True,
+                      **options)
+    else:
+        run = _captured(state.model, ("evaluate", device,
+                                      *options.values()),
+                        partial(_eval_batch, early_exit=False, **options),
+                        draws=True)
+        gen = run.generator
+    gen.manual_seed(seed)
     sums, aux, x = None, None, None
     pooled = {t: [] for t in AP_THRESHOLDS}  # (scores, tp, n_gt) per t
     for _ in range(batches):
         x, gt_bbox, gt_count = next(data)
-        _, aux = forward(state.model, cfg, x, state.step, gen)
-        for t in AP_THRESHOLDS:
-            pooled[t].append(metric.match_predictions(
-                aux["z_where"], aux["z_pres"], gt_bbox, gt_count, img_size,
-                iou_threshold=t))
-        det = detect(state.model, x, cfg)
-        gt = gt_count[:, 0]
-        m = {
-            "bbox_average_precision": metric.mAP(
-                aux["z_where"], aux["z_pres"], gt_bbox, gt_count, img_size),
-            "bbox_ap_center": metric.mAP_center(
-                aux["z_where"], aux["z_pres"], gt_bbox, gt_count, img_size),
-            "object_count_error": metric.object_count_error(
-                aux["z_pres"], gt_count),
-            "count_exact_accuracy": metric.count_accuracy(
-                aux["z_pres"], gt_count),
-            "det_count_acc_50": torch.mean(
-                (det["count"] == gt).to(torch.float32)),
-            "det_count_acc_70": torch.mean(
-                (torch.sum(det["scores"] >= 0.7, dim=-1) == gt)
-                .to(torch.float32)),
-        }
-        if det_threshold is not None:
-            # the calibrated operating point, measured on other scenes than
-            # the calibration's (the seeds differ)
-            scores = det["scores"]
-            if det_nms is not None:
-                scores = scores * nms_keep_batch(det["boxes"], scores,
-                                                 det_nms)
-            m["det_count_acc_cal"] = torch.mean(
-                (torch.sum(scores >= det_threshold, dim=-1) == gt)
-                .to(torch.float32))
+        m, tables, aux = run(state.model, x, gt_bbox, gt_count, state.step)
+        for t, table in zip(AP_THRESHOLDS, tables):
+            pooled[t].append(table)
         sums = m if sums is None else {k: sums[k] + m[k] for k in m}
     keys = list(sums)
     host = torch.stack([sums[k] for k in keys]).cpu()
@@ -108,10 +170,23 @@ def evaluate(cfg, state, batches: int = 32, data=None, seed: int = 1234,
     return result, aux, x
 
 
+def _calib_batch(params, x, gt_bbox, gt_count, thresholds, *, cfg, nms_iou,
+                 early_exit):
+    """One batch of ``calibrate`` at one NMS setting, on the device: (the
+    hits of each threshold (T,), match_boxes' (scores, tp, n_gt))."""
+    det = detect(params, x, cfg, nms_iou=nms_iou, early_exit=early_exit)
+    counts = torch.sum(det["scores"][:, None, :]
+                       >= thresholds[None, :, None], dim=-1)       # (B, T)
+    hits = torch.sum((counts == gt_count[:, :1]).to(torch.float32), dim=0)
+    return hits, metric.match_boxes(det["boxes"], det["scores"], gt_bbox,
+                                    gt_count, 0.5)
+
+
 @torch.no_grad()
 def calibrate(cfg, state, batches: int = 8, data=None, seed: int = 4321,
               digits: str = "auto", thresholds=CALIB_THRESHOLDS,
-              nms_grid=CALIB_NMS, target: str = "count"):
+              nms_grid=CALIB_NMS, target: str = "count",
+              eager: bool = False):
     """Pick the detector's operating point (presence threshold x NMS IoU)
     on held-out scenes, as the JAX package's ``calibrate`` does.
 
@@ -119,24 +194,31 @@ def calibrate(cfg, state, batches: int = 8, data=None, seed: int = 4321,
     target='ap50' picks the NMS setting by pooled AP@0.5 and then the
     threshold by count accuracy within that NMS row. Ties prefer no NMS
     and the threshold closest to 0.5. Uses its own seed, disjoint from
-    ``evaluate``'s."""
+    ``evaluate``'s. On a CUDA device each NMS setting's batch is a replay
+    of its captured program, unless ``eager`` is set."""
     device = state.step.device
     data = _data(cfg, data, seed, digits, device)
     th = torch.as_tensor(thresholds, dtype=torch.float32, device=device)
+    captured = not eager and forward_eager_reason(cfg, device,
+                                                  renders=False) is None
+    runs = {}
+    for g in nms_grid:
+        if captured:
+            runs[g] = _captured(state.model, ("calibrate", device, cfg, g),
+                                partial(_calib_batch, cfg=cfg, nms_iou=g,
+                                        early_exit=False))
+        else:
+            runs[g] = partial(_calib_batch, cfg=cfg, nms_iou=g,
+                              early_exit=True)
     hits = {g: np.zeros(len(thresholds)) for g in nms_grid}
     pooled = {g: [] for g in nms_grid}  # (scores, tp, n_gt) per batch
     scenes = 0
     for _ in range(batches):
         x, gt_bbox, gt_count = next(data)
         for g in nms_grid:
-            det = detect(state.model, x, cfg, nms_iou=g)
-            counts = torch.sum(det["scores"][:, None, :] >= th[None, :, None],
-                               dim=-1)                             # (B, T)
-            hits[g] += torch.sum((counts == gt_count[:, :1]).to(
-                torch.float32), dim=0).cpu().numpy()
-            pooled[g].append([t.reshape(-1).cpu().numpy() for t in
-                              metric.match_boxes(det["boxes"], det["scores"],
-                                                 gt_bbox, gt_count, 0.5)])
+            h, match = runs[g](state.model, x, gt_bbox, gt_count, th)
+            hits[g] += h.cpu().numpy()
+            pooled[g].append([t.reshape(-1).cpu().numpy() for t in match])
         scenes += x.shape[0]
 
     ap50 = {g: metric.average_precision(

@@ -9,11 +9,17 @@ no KL, no rendering, no loss) returning pixel-space detections:
     out["boxes"]   # (B, N, 4) pixel [x0, y0, x1, y1], centre-based
     out["scores"]  # (B, N) presence probabilities
     out["count"]   # (B,) number of scores at or above the threshold
+
+On a CUDA device ``make_detector`` returns the detector as one captured
+CUDA graph for each batch size (``parallel/captured.py::
+CapturedForward``), the counterpart of the JAX package's ``jax.jit`` of
+``detect``; its NMS runs a fixed number of sweeps on the device in place
+of the eager path's early exit, which reads the host once a sweep.
 """
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 
 import torch
 
@@ -51,13 +57,19 @@ def nms_keep(boxes, scores, iou_threshold: float):
     return keep[inv]
 
 
-def nms_keep_batch(boxes, scores, iou_threshold: float):
+def nms_keep_batch(boxes, scores, iou_threshold: float,
+                   early_exit: bool = True):
     """Batched greedy NMS: (B, N, 4), (B, N) -> keep (B, N), the same keep
     set as ``nms_keep`` per image.
 
     Greedy NMS is the unique fixpoint of keep_i = not any(keep_j and
     iou(j, i) > t for j < i) in score order, so sweeps from all-ones
-    converge in (suppression-chain depth + 1) sweeps, at most N."""
+    converge in (suppression-chain depth + 1) sweeps, at most N: each sweep
+    fixes the next box in score order, and a sweep after convergence
+    changes nothing. ``early_exit`` stops at the first sweep that changes
+    nothing, which reads the host once a sweep; without it the N sweeps
+    run on the device with no host read (the captured detector), and give
+    the same keep set."""
     b, n = scores.shape
     order = torch.argsort(-scores, dim=-1, stable=True)
     sorted_boxes = torch.take_along_dim(boxes, order[..., None], dim=1)
@@ -67,24 +79,31 @@ def nms_keep_batch(boxes, scores, iou_threshold: float):
     keep = torch.ones((b, n), dtype=torch.bool, device=scores.device)
     for _ in range(n):
         new = ~torch.any(edge & keep[:, None, :], dim=-1)
-        changed = bool(torch.any(new != keep))
-        keep = new
-        if not changed:
+        if early_exit and not bool(torch.any(new != keep)):
             break
+        keep = new
     return torch.take_along_dim(keep, torch.argsort(order, dim=-1), dim=1)
+
+
+@lru_cache(maxsize=None)
+def _wheel_off_step(device: torch.device):
+    """The step the detector runs at, far past the training-wheel cliff
+    (the wheel is value-neutral anyway): a device tensor made once, at the
+    first eager call, so a capture copies nothing from the host."""
+    return torch.full((), 10 ** 6, dtype=torch.int64, device=device)
 
 
 @torch.no_grad()
 def detect(params, x, cfg: SpairConfig, pres_threshold: float = 0.5,
-           nms_iou=None):
+           nms_iou=None, early_exit: bool = True):
     """Deterministic detection on a batch of images. With ``nms_iou``,
-    greedy NMS zeroes the scores of suppressed boxes."""
+    greedy NMS zeroes the scores of suppressed boxes (``early_exit``: see
+    ``nms_keep_batch``)."""
     b = x.shape[0]
     _, (gh, gw), _ = geometry(cfg)
     noise = {name: torch.zeros(shape, device=x.device)
              for name, shape in noise_shapes(b, (gh, gw), cfg).items()}
-    # far past the training-wheel cliff; the wheel is value-neutral anyway
-    z = infer_latents(params, cfg, x, 10 ** 6, noise=noise)
+    z = infer_latents(params, cfg, x, _wheel_off_step(x.device), noise=noise)
 
     n = gh * gw * cfg.n_object_slots
     img_h, img_w = cfg.image_shape[1:]
@@ -95,14 +114,34 @@ def detect(params, x, cfg: SpairConfig, pres_threshold: float = 0.5,
                         dim=-1)
     scores = z["z_pres_prob"].reshape(b, n)
     if nms_iou is not None:
-        scores = scores * nms_keep_batch(boxes, scores, nms_iou)
+        scores = scores * nms_keep_batch(boxes, scores, nms_iou,
+                                         early_exit=early_exit)
     count = torch.sum(scores >= pres_threshold, dim=-1)
     return {"boxes": boxes, "scores": scores, "count": count,
             "z_depth": z["z_depth"].reshape(b, n)}
 
 
 def make_detector(cfg: SpairConfig, pres_threshold: float = 0.5,
-                  nms_iou=None):
-    """detect_fn(params, images) -> dict, with the config bound."""
-    return partial(detect, cfg=cfg, pres_threshold=pres_threshold,
-                   nms_iou=nms_iou)
+                  nms_iou=None, eager: bool = False):
+    """detect_fn(params, images) -> dict, with the config bound.
+
+    On a CUDA device it is captured: one CUDA graph for each batch size,
+    the first call of a size run eagerly and captured, every later one a
+    replay, bound to the parameters of the first call (``parallel/
+    captured.py``). The CPU and the NaN hunter keep it eager, decided at
+    the first call, as does ``eager``: the A/B of the two forms."""
+    kw = dict(cfg=cfg, pres_threshold=pres_threshold, nms_iou=nms_iou)
+    run = None  # chosen at the first call, from the images' device
+
+    def detect_fn(params, x):
+        nonlocal run
+        if run is None:
+            from spair_pytorch_tpu_torch.parallel import captured
+            if eager or captured.forward_eager_reason(
+                    cfg, x.device, renders=False) is not None:
+                run = partial(detect, **kw)
+            else:
+                run = captured.CapturedForward(
+                    partial(detect, early_exit=False, **kw))
+        return run(params, x)
+    return detect_fn

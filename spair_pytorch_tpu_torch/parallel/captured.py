@@ -45,8 +45,22 @@ the step is not retried. These are the next captures, in this order:
 - the NaN hunter and the whole-program NaN check (``utils/debug.py``): they
   read flags on the host every call.
 
-``make_eval_step`` and the detector are not train steps and stay eager; the
-detector's NMS sweeps end on a host read (``models/infer.py``).
+The forward programs. ``CapturedForward`` is the no-grad counterpart of
+the JAX package's jitted forward programs: the detector
+(``models/infer.py::make_detector``, one graph per batch size, which the
+server's buckets share a memory pool through), the eval step
+(``train_step.py::make_eval_step``) and the per-batch programs of
+``eval.py::evaluate`` and ``calibrate``. It keeps one graph for each
+shape of its inputs, captured at the first call of that shape after one
+eager run of the program on the side stream, which is that call's result;
+every later call copies its inputs into the graph's static buffers,
+replays, and returns copies of the outputs. It is bound to the addresses
+of the parameters and buffers it was first called with (loading a state
+dict copies in place and passes) and to the generator registered with it.
+``forward_eager_reason`` keeps these programs eager on the CPU, under the
+NaN hunter and, for the programs that render, with ``render_topk``; the
+detector renders nothing, so every preset's is captured. The refiner
+(``models/refine.py``) and ``mesh`` stay eager.
 """
 
 from __future__ import annotations
@@ -55,6 +69,7 @@ import functools
 from typing import Optional
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from spair_pytorch_tpu_torch.config import SpairConfig
 from spair_pytorch_tpu_torch.ops.kernels import composite as _k12
@@ -69,12 +84,20 @@ COUNTED = (_k12.composite_forward, _k12.composite_backward,
 def eager_reason(cfg: SpairConfig, device, mesh=None) -> Optional[str]:
     """Why a train step of ``cfg`` on ``device`` runs eagerly, or None
     when it is captured."""
+    if torch.device(device).type == "cuda" and mesh is not None:
+        return "mesh: the gradient all-reduce (NCCL) is not captured"
+    return forward_eager_reason(cfg, device)
+
+
+def forward_eager_reason(cfg: SpairConfig, device,
+                         renders: bool = True) -> Optional[str]:
+    """Why a program of ``cfg`` on ``device`` runs eagerly, or None when it
+    is captured. ``renders``: whether the program renders (the detector
+    does not, so ``render_topk`` leaves it captured)."""
     device = torch.device(device)
     if device.type != "cuda":
         return f"{device.type} device: CUDA graphs need a CUDA device"
-    if mesh is not None:
-        return "mesh: the gradient all-reduce (NCCL) is not captured"
-    if cfg.render_topk:
+    if renders and cfg.render_topk:
         return ("render_topk: models/render.py::_live_at_most reads the "
                 "live count on the host")
     if host_checks_on():
@@ -88,6 +111,46 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     step: cuBLAS keeps a workspace for each stream it has run on, for the
     life of the process."""
     return torch.cuda.Stream(device)
+
+
+def _warm_up(device, fn):
+    """``fn()`` run eagerly on the side stream, after the work the caller's
+    stream has queued; the caller's stream waits for it, and the tensors
+    of its result (a tree) are recorded on that stream."""
+    stream = _side_stream(device)
+    current = torch.cuda.current_stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        out = fn()
+    current.wait_stream(stream)
+    for t in tree_flatten(out)[0]:
+        t.record_stream(current)
+    return out
+
+
+def _capture(graph, fn, device, generator=None, pool=None):
+    """``fn()`` captured into ``graph`` on the side stream, ``generator``
+    registered with it: (fn's result, the graph's static outputs; the
+    launches of one replay, per COUNTED wrapper). The wrappers count
+    Python calls, so what the capture counted is taken back: it launched
+    nothing on the card. A capture that raises is not retried."""
+    before = [w.launches for w in COUNTED]
+    if generator is not None:
+        graph.register_generator_state(generator)
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=_side_stream(device)):
+            out = fn()
+    finally:
+        per_replay = [w.launches - n for w, n in zip(COUNTED, before)]
+        for w, n in zip(COUNTED, before):
+            w.launches = n
+    return out, per_replay
+
+
+def _replayed(per_replay):
+    """Counts one replay's launches on each COUNTED wrapper."""
+    for w, n in zip(COUNTED, per_replay):
+        w.launches += n
 
 
 def _addresses(state):
@@ -140,8 +203,7 @@ class CapturedStep:
             out[:, 0].copy_(first)
         for i in range(0 if first is None else 1, self.k):
             self.graph.replay()
-            for fn, n in zip(COUNTED, self.per_replay):
-                fn.launches += n
+            _replayed(self.per_replay)
             out[:, i].copy_(self.static_out)
         if self.k == 1:
             return state, {k: out[j, 0] for j, k in enumerate(self.keys)}
@@ -159,33 +221,114 @@ class CapturedStep:
         for b, s in zip(batch, self.static_in):
             s.copy_(b)
 
+    def _stacked(self, state, batch):
+        """One step's metrics, stacked in ``self.keys``' order."""
+        metrics = self.one_step(state, *batch)
+        self.keys = list(metrics)
+        return torch.stack([metrics[k] for k in self.keys])
+
     def _warm_up_and_capture(self, state, batch):
         """One eager step on a side stream, then the capture on it; returns
         the eager step's metrics, stacked."""
         device = state.step.device
-        stream = _side_stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            metrics = self.one_step(state, *batch)
-            self.keys = list(metrics)
-            first = torch.stack([metrics[k] for k in self.keys])
-        torch.cuda.current_stream(device).wait_stream(stream)
-        first.record_stream(torch.cuda.current_stream(device))
+        first = _warm_up(device, lambda: self._stacked(state, batch))
         self.static_in = tuple(b.clone() for b in batch)
-
-        before = [fn.launches for fn in COUNTED]
         self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(state.generator)
-        try:
-            with torch.cuda.graph(self.graph, stream=stream):
-                metrics = self.one_step(state, *self.static_in)
-                static_out = torch.stack([metrics[k] for k in self.keys])
-        finally:
-            # the capture launched nothing on the card
-            self.per_replay = [fn.launches - n
-                               for fn, n in zip(COUNTED, before)]
-            for fn, n in zip(COUNTED, before):
-                fn.launches = n
-        self.static_out = static_out
+        self.static_out, self.per_replay = _capture(
+            self.graph, lambda: self._stacked(state, self.static_in), device,
+            state.generator)
         self.bound = _addresses(state)
+        return first
+
+
+def static_input(value, device):
+    """A graph's static buffer for an input: a copy of a tensor, or a 0-d
+    tensor on ``device`` filled with a Python number (int64 for an int,
+    float32 otherwise), never a copy from the host."""
+    if torch.is_tensor(value):
+        return value.clone()
+    dtype = torch.int64 if isinstance(value, int) else torch.float32
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+def _module_addresses(params):
+    """What a forward graph is bound to: the addresses of the parameters'
+    and buffers' storage."""
+    return tuple(t.data_ptr() for t in (*params.parameters(),
+                                        *params.buffers()))
+
+
+class _Graph:
+    """One captured shape: the graph, its static inputs and outputs (the
+    outputs flat, with their tree) and the launches of one replay."""
+
+    def __init__(self):
+        self.graph = None
+        self.static_in = ()
+        self.static_out = None
+        self.tree = None
+        self.per_replay = None
+
+
+class CapturedForward:
+    """``run(params, *inputs) -> program(params, *inputs)``, a tree of
+    tensors, with one captured CUDA graph for each shape of the inputs
+    (module docstring). Inputs are tensors on the card, or Python numbers,
+    which become 0-d static tensors filled before each replay.
+    ``generator``: the generator the program draws from, registered with
+    every graph; ``pool``: a memory pool to share (one for all of this
+    program's graphs by default)."""
+
+    def __init__(self, program, generator: Optional[torch.Generator] = None,
+                 pool=None):
+        self.program = program
+        self.generator = generator
+        self.pool = pool
+        self.graphs = {}
+        self.bound = None
+
+    def __call__(self, params, *inputs):
+        key = tuple((tuple(t.shape), t.dtype, t.device)
+                    if torch.is_tensor(t) else type(t) for t in inputs)
+        entry = self.graphs.get(key)
+        if self.bound is not None and _module_addresses(params) != self.bound:
+            raise RuntimeError(
+                "this captured program is bound to the parameters it was "
+                "captured with (their addresses then); load new values in "
+                "place, or build a new program")
+        if host_checks_on():
+            raise RuntimeError("the NaN hunter is on: a captured program "
+                               "cannot run it; build a new one")
+        if entry is None:
+            return self._warm_up_and_capture(key, params, inputs)
+        if entry.static_out is None:
+            raise RuntimeError("this program's capture failed for these "
+                               "shapes; build a new program")
+        for s, t in zip(entry.static_in, inputs):
+            if torch.is_tensor(t):
+                s.copy_(t)
+            else:
+                s.fill_(t)
+        entry.graph.replay()
+        _replayed(entry.per_replay)
+        return tree_unflatten([t.clone() for t in entry.static_out],
+                              entry.tree)
+
+    def _warm_up_and_capture(self, key, params, inputs):
+        """One eager run on the side stream, from the static inputs, which
+        is this call's result; then the capture on that stream."""
+        device = next(t.device for t in inputs if torch.is_tensor(t))
+        entry = _Graph()
+        entry.static_in = tuple(static_input(t, device) for t in inputs)
+        first = _warm_up(device, lambda: self.program(params,
+                                                      *entry.static_in))
+        self.graphs[key] = entry  # from here on, never retried
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        entry.graph = torch.cuda.CUDAGraph()
+        out, entry.per_replay = _capture(
+            entry.graph, lambda: self.program(params, *entry.static_in),
+            device, self.generator, self.pool)
+        entry.static_out, entry.tree = tree_flatten(out)
+        self.bound = _module_addresses(params)
         return first

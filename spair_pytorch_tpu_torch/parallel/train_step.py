@@ -39,8 +39,10 @@ from spair_pytorch_tpu_torch.data.sharded import generate_host_local
 from spair_pytorch_tpu_torch.models.latents import (SpairModel, geometry,
                                                     init_params, sample_noise)
 from spair_pytorch_tpu_torch.models.spair import forward
-from spair_pytorch_tpu_torch.parallel.captured import (CapturedStep,
-                                                       eager_reason)
+from spair_pytorch_tpu_torch.parallel.captured import (CapturedForward,
+                                                       CapturedStep,
+                                                       eager_reason,
+                                                       forward_eager_reason)
 from spair_pytorch_tpu_torch.parallel.mesh import (Mesh, all_reduce_,
                                                    reduce_metrics)
 from spair_pytorch_tpu_torch.utils.debug import grad_norms_by_head
@@ -226,12 +228,38 @@ def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
     return step_fn
 
 
-def make_eval_step(cfg: SpairConfig):
+def make_eval_step(cfg: SpairConfig, eager: bool = False):
     """Returns eval(params, x, step, generator) -> (loss, aux): ``forward``
-    without gradients."""
+    without gradients.
+
+    On a CUDA device it is captured, as the JAX package jits it: one CUDA
+    graph for each shape of x, with x and the step (a tensor, or a number
+    filled into the graph's step before each replay) as static inputs and
+    the generator of the first call registered with the graph
+    (``parallel/captured.py``). A call with another generator, or other
+    parameters, raises. It stays eager where ``forward_eager_reason`` gives
+    a reason (the CPU, ``render_topk``, the NaN hunter), decided at the
+    first call, or when ``eager`` is set."""
 
     def eval_fn(params, x, step, generator):
         with torch.no_grad():
             return forward(params, cfg, x, step, generator)
 
-    return eval_fn
+    program = None  # chosen at the first call, from x's device
+
+    def step_fn(params, x, step, generator):
+        nonlocal program
+        if program is None:
+            program = eval_fn
+            if not eager and forward_eager_reason(cfg, x.device) is None:
+                program = CapturedForward(
+                    lambda p, x, s: eval_fn(p, x, s, generator),
+                    generator=generator)
+        if program is eval_fn:
+            return eval_fn(params, x, step, generator)
+        if generator is not program.generator:
+            raise RuntimeError("this captured eval step draws from the "
+                               "generator of its first call; build a new "
+                               "step with make_eval_step")
+        return program(params, x, step)
+    return step_fn

@@ -2,7 +2,11 @@
 ``spair_pytorch_tpu/serve.py``).
 
 Requests of any size are packed into fixed-size batches (buckets), run
-through ``models.infer.detect``, thresholded and unpadded per request:
+through ``models.infer.make_detector``'s detector, thresholded and unpadded
+per request. On a CUDA device the server keeps one captured CUDA graph per
+bucket, as the JAX package keeps one compiled program per bucket: ``warmup``
+captures every bucket, the buckets' graphs share one memory pool, and each
+chunk of a request is copied into its bucket's static input and replayed:
 
     server = DetectorServer(cfg, params, batch_sizes=(1, 8, 32))
     dets = server.detect(images)        # (N, C, H, W) any N
@@ -48,14 +52,20 @@ class DetectorServer:
         self.device = next(params.parameters()).device
         self._fn = make_detector(cfg, pres_threshold, nms_iou=nms_iou)
 
-    def warmup(self):
-        """Run every bucket once so no request pays first-call costs."""
+    def warmup(self) -> Dict[int, float]:
+        """Run every bucket once so no request pays first-call costs: on a
+        CUDA device that call captures the bucket's graph. Returns each
+        bucket's seconds on the host clock, to the end of its call."""
         c, h, w = self.cfg.image_shape
+        seconds = {}
         for b in self.buckets:
+            t0 = time.perf_counter()
             self._fn(self.params, torch.zeros((b, c, h, w),
                                               device=self.device))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            seconds[b] = time.perf_counter() - t0
+        return seconds
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -167,7 +177,8 @@ def main(argv=None):
     print(f"presence threshold {threshold}, nms {nms_iou}")
     server = DetectorServer(cfg, params, batch_sizes=(args.batch,),
                             pres_threshold=threshold, nms_iou=nms_iou)
-    server.warmup()
+    for b, sec in server.warmup().items():
+        print(f"bucket {b}: first call (capture on a card) {sec:.3f} s")
 
     bank = torch.as_tensor(glyph_bank((14, 14)), device=device)
     dcfg = DataConfig(image_hw=cfg.image_shape[1:],

@@ -110,12 +110,17 @@ class _NoDataShapedOps(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+def step_counts(state):
+    """The CPU optimizer's step counts, which it reads with ``.item()``."""
+    return [s["step"] for s in state.optimizer.state.values()]
+
+
 @contextlib.contextmanager
-def no_host_reads(state):
-    """Inside: the host reads raise for every tensor but the CPU
-    optimizer's step counts, host-data factories and data-shaped ops
-    too."""
-    exempt = {id(s["step"]) for s in state.optimizer.state.values()}
+def no_host_reads(exempt=()):
+    """Inside: the host reads raise for every tensor but those in
+    ``exempt`` (a train step's: ``step_counts(state)``), host-data
+    factories and data-shaped ops too."""
+    exempt = {id(t) for t in exempt}
     with pytest.MonkeyPatch.context() as mp:
         for name in HOST_READS:
             original = getattr(torch.Tensor, name)
@@ -135,7 +140,7 @@ def test_datagen_step_makes_no_host_read(option):
     step = make_train_step(cfg, datagen=data(cfg))
     state = create_train_state(cfg, device="cpu")
     step(state)  # the warm-up step: schedules and caches made once
-    with no_host_reads(state):
+    with no_host_reads(step_counts(state)):
         _, metrics = step(state)
     assert int(state.step) == 2
     assert "losses/total" in metrics and "accuracy/count_exact" in metrics
@@ -155,7 +160,7 @@ def test_batch_step_makes_no_host_read(with_detection):
     def arg(b):
         return b if with_detection else b[0]
     step(state, arg(batches[0]))
-    with no_host_reads(state):
+    with no_host_reads(step_counts(state)):
         _, metrics = step(state, arg(batches[1]))
     assert int(state.step) == 2
     assert len(metrics) == (24 if with_detection else 20)
@@ -178,7 +183,7 @@ def test_the_guard_catches_a_host_read(monkeypatch, fault, message):
     real = ts.global_norm
     monkeypatch.setattr(ts, "global_norm", lambda g: fault(real(g)))
     with pytest.raises(AssertionError, match=message):
-        with no_host_reads(state):
+        with no_host_reads(step_counts(state)):
             step(state)
 
 

@@ -998,6 +998,125 @@ def test_resumed_captured_train_equals_an_uninterrupted_one(deterministic,
                        whole.generator.get_state())
 
 
+# the forward programs captured as CUDA graphs (parallel/captured.py::
+# CapturedForward): the detector, the eval step, evaluate, calibrate
+
+DETECTOR_ARMS = [(1, "f32"), (8, "f32"), (32, "f32"), (128, "f32"),
+                 (32, "bf16"), (32, "int8")]
+
+
+def paper128_detector_inputs(b, weights, dev):
+    """(config, parameters, images) of the paper128 detector."""
+    import dataclasses
+
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.models import init_params
+    from spair_pytorch_tpu_torch.ops.quant import quantize_params_int8
+
+    cfg = PRESETS["paper128"]()
+    params = init_params(cfg, device=dev)
+    if weights == "bf16":
+        cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    if weights == "int8":
+        params = quantize_params_int8(params)
+    x = torch.rand((b, 1, 128, 128), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(b))
+    return cfg, params, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nms", [None, 0.5], ids=["no_nms", "nms_0.5"])
+@pytest.mark.parametrize("b, weights", DETECTOR_ARMS,
+                         ids=[f"b{b}_{w}" for b, w in DETECTOR_ARMS])
+def test_captured_detector_equals_eager(cuda, b, weights, nms):
+    """The first call (eager run and capture) and a replay equal the eager
+    detector bit for bit; a replay returns fresh tensors."""
+    from spair_pytorch_tpu_torch.models.infer import make_detector
+
+    cfg, params, x = paper128_detector_inputs(b, weights, cuda)
+    captured = make_detector(cfg, nms_iou=nms)
+    want = make_detector(cfg, nms_iou=nms, eager=True)(params, x)
+    first, again = captured(params, x), captured(params, x)
+    for got in (first, again):
+        assert list(got) == list(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert first["scores"].data_ptr() != again["scores"].data_ptr()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["auto", "pallas_v3"])
+def test_captured_eval_step_equals_eager(deterministic, backend):
+    """3 calls of the captured eval step (a capture, then 2 replays)
+    against the eager step from a generator in the same state: loss and
+    every aux tensor bit for bit; each replay launches the path's kernel
+    (K1 or K3) once, counted over the replays."""
+    import dataclasses
+
+    from spair_pytorch_tpu_torch.parallel import make_eval_step
+    from torch.utils._pytree import tree_flatten
+
+    cfg, params, x = paper128_detector_inputs(32, "f32", deterministic)
+    cfg = dataclasses.replace(cfg, render_backend=backend)
+    runs = {}
+    for eager in (True, False):
+        step = make_eval_step(cfg, eager=eager)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        runs[eager] = [step(params, x, 1500, gen)]
+        before = [fn.launches for fn in counted()]
+        runs[eager] += [step(params, x, 1500, gen) for _ in range(2)]
+        torch.cuda.synchronize()
+        launches = [fn.launches - n for fn, n in zip(counted(), before)]
+        assert launches == ([2, 0, 0, 0] if backend == "auto"
+                            else [0, 0, 2, 0]), (eager, launches)
+    got, want = (tree_flatten(runs[e])[0] for e in (False, True))
+    assert len(got) == len(want) > 20
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert len({float(r[0]) for r in runs[False]}) == 3
+
+
+@pytest.mark.gpu
+def test_captured_programs_are_bound(cuda):
+    """A captured detector runs after its parameters were loaded in place
+    and raises for another module; a captured eval step raises for another
+    generator."""
+    from spair_pytorch_tpu_torch.models import init_params
+    from spair_pytorch_tpu_torch.models.infer import make_detector
+    from spair_pytorch_tpu_torch.parallel import make_eval_step
+
+    cfg, params, x = paper128_detector_inputs(8, "f32", cuda)
+    detect = make_detector(cfg)
+    detect(params, x)
+    params.load_state_dict(init_params(cfg, device="cuda").state_dict())
+    detect(params, x)
+    with pytest.raises(RuntimeError, match="bound to the parameters"):
+        detect(init_params(cfg, device="cuda"), x)
+    step = make_eval_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    step(params, x, 1500, gen)
+    step(params, x, 1500, gen)
+    with pytest.raises(RuntimeError, match="generator of its first call"):
+        step(params, x, 1500, torch.Generator(device="cuda"))
+
+
+@pytest.mark.gpu
+def test_captured_evaluate_and_calibrate_equal_eager(cuda):
+    """evaluate twice with one seed (one capture, re-seeded) and once
+    eagerly: equal results; calibrate captured and eager: equal."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.eval import calibrate, evaluate
+    from spair_pytorch_tpu_torch.parallel import create_train_state
+
+    cfg = PRESETS["paper128"](batch_size=16)
+    state = create_train_state(cfg, device="cuda")
+    kw = dict(digits="font", det_threshold=0.5, det_nms=0.5)
+    got = [evaluate(cfg, state, 2, **kw)[0] for _ in range(2)]
+    want = evaluate(cfg, state, 2, eager=True, **kw)[0]
+    assert got[0] == got[1] == want
+    assert calibrate(cfg, state, 2, digits="font") == calibrate(
+        cfg, state, 2, digits="font", eager=True)
+
+
 @pytest.mark.gpu
 def test_a_host_read_in_the_step_makes_the_capture_raise(cuda, monkeypatch):
     """A host read injected into the step: the warm-up step runs it
@@ -1027,3 +1146,24 @@ def test_a_host_read_in_the_step_makes_the_capture_raise(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="capture failed"):
         step(state)
     assert int(state.step) == 1
+
+
+@pytest.mark.gpu
+def test_a_host_read_in_the_detector_makes_its_capture_raise(cuda,
+                                                            monkeypatch):
+    """A host read injected into the detector's NMS: the first call's
+    eager run reads it, the capture raises, and a later call raises
+    without running the detector eagerly. Last in the file, after the
+    step's own: it leaves a failed capture behind."""
+    from spair_pytorch_tpu_torch.models import infer
+
+    real = infer.pairwise_iou
+    monkeypatch.setattr(infer, "pairwise_iou",
+                        lambda b: real(b) * (real(b).sum().item() > -1))
+    cfg, params, x = paper128_detector_inputs(8, "f32", cuda)
+    detect = infer.make_detector(cfg, nms_iou=0.5)
+    with pytest.raises(RuntimeError):
+        detect(params, x)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        detect(params, x)
