@@ -6,9 +6,11 @@ point through the banded compositor ('pallas_v3') at paper128 width, the
 model options of three more presets, the host data inputs, int8 serving,
 data-parallel training (world size 1) and the tools, split refinement and
 the figure path, the benchmark entry point, the train step captured as a
-CUDA graph against the eager step, and the forward programs (detector,
-eval step, evaluate, calibrate) captured against eager, on one CUDA card,
-with random weights from the preset's seed:
+CUDA graph against the eager step, the forward programs (detector,
+eval step, evaluate, calibrate) captured against eager, and the render_topk
+presets' train step, eval step and evaluate captured as segments around the
+render's top-K branch against eager, on one CUDA card, with random weights
+from the preset's seed:
 
   1. device     the card's name and power limit (nvidia-smi);
   2. build      compiles csrc/composite_fwd.cu (K1, and K3 as its banded
@@ -78,7 +80,8 @@ with random weights from the preset's seed:
                 of every launch; (c) train() of the three presets for 10
                 steps each at their widths and batches from random
                 weights: losses, ms/step, K1/K2 launches, top-K and
-                fallback steps; (d) one train step with the conv codec and
+                fallback steps (the branch counts of the captured steps
+                train() makes); (d) one train step with the conv codec and
                 one with the vestigial self-attention (its loss equal to
                 the loss without it bit for bit); (e) the sequential and
                 the parallel count prior, and the ordered compositor's full
@@ -174,13 +177,35 @@ with random weights from the preset's seed:
                 their wall times; (d) last, after 17(j): a .item()
                 injected into the detector's NMS makes its capture raise,
                 and a second call raises without running.
+ 19. top-K      render_topk's train step, eval step and evaluate captured
+                as segments around the render's branch
+                (parallel/captured.py::SegmentedStep, SegmentedForward),
+                against eager, for cluttered_fine b32 (reference mode, K1/K2
+                on N=32 or N=256) and quality b32 (ordered mode) at their
+                widths (16x16 grid, 46 fronts): (a) a call of 4 steps from
+                the cold, dense state (the full branch), the presence head's
+                bias shifted in place, a call on the sparse state (the top-K
+                branch), under deterministic kernels: both runs' branch
+                sequences, the eager steps' largest live counts, each
+                branch's tensors (metrics, the step, parameters, Adam's
+                state) bit for bit, the generators, each segment's launches
+                a replay and the N of each launch made in Python; (b)
+                cluttered_fine's K1 and K2 on the captured path's inputs of
+                both branches (segment A's static outputs) against their
+                plain versions, timed beside them and their bounds; (c)
+                eager against captured ms/step and img/s in turns in each
+                branch, the first call's time (warm-up and three captures)
+                and the reserved memory it adds; (d) the eval step (3
+                calls) and evaluate(batches=4) captured against eager in
+                each branch, with their times. Run before the failed-capture
+                checks of 17(j) and 18(d).
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
 cuDNN convs in full f32), so kernels and plain versions are compared on the
 same arithmetic. The last two lines are a JSON summary of the kernels and
 the result line {"ok": true, "device": {...}}. A kernel's "launches" there
 are its own path's, K1/K2 from phase 9 and K3/K4 from phase 12, and its
-"path_launches" those of phase 15's to phase 18's paths, each read from
+"path_launches" those of phase 15's to phase 19's paths, each read from
 its own run. Launches of a captured step or program are counted over its
 replays.
 
@@ -1195,25 +1220,39 @@ def options_phase(K, V, card, dev):
         if errs[0] > 1e-6 + 1e-6 * float(want[0].abs().max()):
             raise AssertionError("top-K recon differs from the full grid")
 
-    # (c) train() of the three presets at their widths and batches
+    # (c) train() of the three presets at their widths and batches; the
+    # render_topk presets' steps are replays of the segmented capture, so
+    # the branches are read from the step functions train() makes
     import tempfile
+
+    import spair_pytorch_tpu_torch.train as train_module
     for name, b in (("cluttered_fine", 32), ("quality", 32),
                     ("tpu_throughput", 256)):
         cfg = PRESETS[name]()
         if cfg.batch_size != b:
             raise AssertionError(f"{name}'s batch is {cfg.batch_size}")
         steps = 10
+        made, real_make = [], train_module.make_train_step
+
+        def keep(*a, **kw):
+            made.append(real_make(*a, **kw))
+            return made[-1]
         with tempfile.TemporaryDirectory() as logdir:
             K.composite_forward.launches = K.composite_backward.launches = 0
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            with LaunchSizes(K, R) as rec:
-                start.record()
-                train(cfg, steps=steps, logdir=logdir, checkpoint_every=0,
-                      metrics_every=1, steps_per_call=steps, digits="font",
-                      verbose=False, device=dev)
-                end.record()
-                torch.cuda.synchronize()
+            train_module.make_train_step = keep
+            try:
+                with LaunchSizes(K, R) as rec:
+                    start.record()
+                    train(cfg, steps=steps, logdir=logdir,
+                          checkpoint_every=0, metrics_every=1,
+                          steps_per_call=steps, digits="font",
+                          verbose=False, device=dev)
+                    end.record()
+                    torch.cuda.synchronize()
+            finally:
+                train_module.make_train_step = real_make
             launches = (K.composite_forward.launches,
                         K.composite_backward.launches)
             with open(f"{logdir}/metrics.jsonl") as f:
@@ -1222,9 +1261,13 @@ def options_phase(K, V, card, dev):
         ms = start.elapsed_time(end) / steps
         sizes = rec.sizes["ordered"] if cfg.render_mode == "ordered" \
             else rec.sizes["K1"]
-        topk_steps = sum(1 for x in sizes if x == cfg.render_topk)
-        branches = (f"; top-K branch {topk_steps} steps, fallback "
-                    f"{len(sizes) - topk_steps}" if cfg.render_topk else "")
+        counts = [fn.branches.counts for fn in made if fn.branches]
+        branches = (f"; top-K branch {sum(c['topk'] for c in counts)} "
+                    f"steps, fallback {sum(c['full'] for c in counts)}"
+                    if cfg.render_topk else "")
+        if cfg.render_topk and sum(c["topk"] + c["full"]
+                                   for c in counts) != steps:
+            raise AssertionError(f"{name}: branches {counts}")
         phase("options", f"train() {name} b{b} {cfg.inference_mode} "
                          f"{cfg.compute_dtype} {cfg.render_mode}: {steps} "
                          f"steps from random weights, losses "
@@ -1233,7 +1276,8 @@ def options_phase(K, V, card, dev):
                          f"{ms:.3f} ms/step, {b / ms * 1e3:.1f} img/s (CUDA "
                          f"events around train(), set-up and first step "
                          f"included; {card}); launches K1 {launches[0]}, K2 "
-                         f"{launches[1]}; composites on N = "
+                         f"{launches[1]}; composites in Python (eager, "
+                         f"warm-up and capture) on N = "
                          f"{sorted(set(sizes))}{branches}")
         if len(losses) != steps or not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"{name}: losses {losses}")
@@ -2505,6 +2549,340 @@ def forward_phase(card, dev):
     return launches
 
 
+# phase 19: render_topk captured as segments around the render's top-K
+# branch (parallel/captured.py::SegmentedStep, SegmentedForward), at the
+# presets' widths and batch: cluttered_fine (reference mode, K1/K2 on N = 32
+# or 256) and quality (ordered mode, plain torch)
+TOPK_RUNS = (("cluttered_fine", "reference"), ("quality", "ordered"))
+TOPK_SPARSE_BIAS = -8.0  # the presence head's bias shift: ~8 of 256 live
+TOPK_STEPS = 4           # steps a call
+
+
+class Segments:
+    """While active, keeps every SegmentedStep that make_train_step builds
+    (its static carry holds segment A's outputs of the last replay), and the
+    largest live count of every step that runs ``render_objects`` eagerly
+    (an eager step, a captured step's warm-up; not a capture)."""
+
+    def __enter__(self):
+        import importlib
+
+        from spair_pytorch_tpu_torch.models import spair
+        self.ts = importlib.import_module("spair_pytorch_tpu_torch.parallel."
+                                          "train_step")
+        self.spair = spair
+        self.made, self.live = [], []
+        self.saved = (self.ts.SegmentedStep, spair.render_objects)
+        real_step, real_objects = self.saved
+        made, live = self.made, self.live
+
+        def kept(*a, **kw):
+            made.append(real_step(*a, **kw))
+            return made[-1]
+
+        def objects(*a, **kw):
+            out = real_objects(*a, **kw)
+            if out[0]["gate"] is not None and \
+                    not torch.cuda.is_current_stream_capturing():
+                live.append(int((out[0]["gate"] > 0).sum(1).max()))
+            return out
+        self.ts.SegmentedStep, spair.render_objects = kept, objects
+        return self
+
+    def __exit__(self, *exc):
+        self.ts.SegmentedStep, self.spair.render_objects = self.saved
+
+
+def shift_presence_(model, bias):
+    """The presence head's output bias shifted in place, at its address
+    (to which a captured step is bound)."""
+    with torch.no_grad():
+        model.obj_network.out.bias += bias
+
+
+def state_snapshot(state, metrics):
+    """Clones of a call's metrics, the step, the parameters and Adam's
+    state."""
+    return [v.clone() for k, v in sorted(metrics.items())] + [
+        t.detach().clone() for t in [state.step]
+        + list(state.model.parameters())
+        + [v for s in state.optimizer.state.values()
+           for v in s.values() if torch.is_tensor(v)]]
+
+
+def carry_objects(seg):
+    """Clones of segment A's decoded objects from the last replay."""
+    objects = seg.carry[0]["objects"]
+    return {k: objects[k].detach().clone() for k in
+            ("color", "alpha", "importance", "boxes", "gate", "scores")}
+
+
+def topk_kernel_rows(K, objects, k, card, dev):
+    """K1 and K2 on the compositor inputs of one branch of the captured
+    path (``objects`` as segment A left them): held against their plain
+    versions (f32 1e-4, gradients 1e-3), then timed in turns beside the
+    plain versions and their bound. Returns {kernel: (ms, bound ms, bound
+    by, N)}."""
+    from spair_pytorch_tpu_torch.models import render as R
+    o = objects
+    inputs = (o["color"], o["alpha"], o["importance"], o["boxes"])
+    gate, n = o["gate"], o["color"].shape[1]
+    floor = None
+    if k:
+        take = R._top_k(o["scores"], k)
+        inputs, gate, floor = tuple(map(take, inputs)), take(gate), n
+    b, kn = inputs[0].shape[:2]
+    glimpse = tuple(inputs[0].shape[-2:])
+    cot = random_cotangents(b, torch.Generator(device=dev).manual_seed(19),
+                            dev)
+    name = f"{'top-K' if k else 'full'} N={kn}"
+    with torch.no_grad():
+        check("topk", f"K1 {name}", F32_BAR,
+              K.composite_forward(*inputs, HW, WIN, pres_gate=gate,
+                                  den_floor_n=floor),
+              K.composite_plain(*inputs, HW, pres_gate=gate,
+                                den_floor_n=floor))
+        check("topk", f"K2 {name}", GRAD_BAR,
+              K.composite_backward(*inputs, HW, *cot, pres_gate=gate),
+              K.composite_backward_plain(*inputs, HW, *cot, pres_gate=gate))
+        fns = {"K1": lambda: K.composite_forward(
+                   *inputs, HW, WIN, pres_gate=gate, den_floor_n=floor),
+               "plain K1": lambda: K.composite_plain(
+                   *inputs, HW, pres_gate=gate, den_floor_n=floor),
+               "K2": lambda: K.composite_backward(*inputs, HW, *cot,
+                                                  pres_gate=gate),
+               "plain K2": lambda: K.composite_backward_plain(
+                   *inputs, HW, *cot, pres_gate=gate)}
+        got = {key: [] for key in fns}
+        for key in ("plain K1", "K1", "K1", "plain K1", "plain K2", "K2",
+                    "K2", "plain K2"):
+            got[key].append(cuda_ms(fns[key], 5 if key.startswith("plain")
+                                    else 20))
+    rows = {}
+    for key, fwd in (("K1", True), ("K2", False)):
+        live = float(gate.sum())
+        bms, by, moved = bound(b, C, inputs[0].element_size(), fwd,
+                               support_pairs(inputs[3], gate=gate,
+                                             glimpse=glimpse),
+                               live=live, n=kn, glimpse=glimpse)
+        t = sum(got[key]) / 2
+        rows[key] = (t, bms, by, kn)
+        phase("topk", f"{key} {name} on the captured path's inputs (b{b}, "
+                      f"{int(live)} live, {glimpse[0]}x{glimpse[1]}): "
+                      f"{', '.join(f'{x:.4f}' for x in got[key])} ms, plain "
+                      f"{', '.join(f'{x:.4f}' for x in got['plain ' + key])}"
+                      f" ms; bound {bms:.4f} ms ({by}), {bms / t:.1%} of "
+                      f"it ({card})")
+    return rows
+
+
+def topk_phase(K, card, dev):
+    """Phase 19: the train step, the eval step and evaluate of the two
+    render_topk presets captured as segments, against eager, in both
+    branches. Returns the K1-K4 launches of each preset's captured A/B run
+    and K1/K2's rows on the captured path's inputs."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.data import generate_batch, glyph_bank
+    from spair_pytorch_tpu_torch.eval import _CAPTURES, evaluate
+    from spair_pytorch_tpu_torch.models import render as R
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_eval_step,
+                                                  make_train_step)
+    from spair_pytorch_tpu_torch.train import data_config
+
+    t_phase = time.perf_counter()
+    launches, rows = {}, {}
+    for name, mode in TOPK_RUNS:
+        cfg = PRESETS[name]()
+        k = cfg.render_topk
+        dcfg = data_config(cfg)
+        datagen = (dcfg, torch.as_tensor(glyph_bank(dcfg.patch_hw),
+                                         device=dev))
+        tag = f"{name} b{cfg.batch_size} {mode}"
+
+        # (a) captured against eager: a call of TOPK_STEPS steps from the
+        # cold, dense state (the full composite), the presence bias shifted
+        # in place, a call on the sparse state (the top-K composite)
+        runs = {}
+        for arm in ("eager", "captured"):
+            with Deterministic(), Segments() as seg, LaunchSizes(K, R) as rec:
+                state = create_train_state(cfg, device=dev)
+                fn = make_train_step(cfg, datagen=datagen,
+                                     steps_per_call=TOPK_STEPS,
+                                     eager=arm == "eager")
+                for w in counted_kernels():
+                    w.launches = 0
+                calls = []
+                for sparse in (False, True):
+                    if sparse:
+                        shift_presence_(state.model, TOPK_SPARSE_BIAS)
+                    m = fn(state)[1]
+                    calls.append((list(fn.branches.last),
+                                  state_snapshot(state, m),
+                                  None if arm == "eager"
+                                  else carry_objects(seg.made[0])))
+                torch.cuda.synchronize()
+            runs[arm] = dict(calls=calls, gen=state.generator.get_state(),
+                             launches=[w.launches for w in counted_kernels()],
+                             live=list(seg.live), sizes=rec.sizes,
+                             counts=dict(fn.branches.counts),
+                             seg=seg.made[0] if seg.made else None)
+            del state, fn
+        e, c = runs["eager"], runs["captured"]
+        launches[f"captured_topk_{name}"] = c["launches"]
+        seqs = [(ce[0], cc[0]) for ce, cc in zip(e["calls"], c["calls"])]
+        phase("topk", f"{tag}: branches of {2 * TOPK_STEPS} steps, eager "
+                      f"{[s[0] for s in seqs]}, captured "
+                      f"{[s[1] for s in seqs]} (True = top-K); counts "
+                      f"captured {c['counts']}, eager {e['counts']}; the "
+                      f"eager steps' largest live count an image "
+                      f"{e['live']} (K = {k})")
+        if any(a != b for a, b in seqs) or seqs[0][0] != [False] * \
+                TOPK_STEPS or seqs[1][0] != [True] * TOPK_STEPS:
+            raise AssertionError(f"{tag}: the branch sequences differ or "
+                                 f"miss a branch: {seqs}")
+        for (name_b, i) in (("full", 0), ("top-K", 1)):
+            pairs = list(zip(c["calls"][i][1], e["calls"][i][1]))
+            equal = sum(torch.equal(x, y) for x, y in pairs)
+            diff = max(float((x.float() - y.float()).abs().max())
+                       for x, y in pairs)
+            phase("topk", f"{tag}, {name_b} branch: captured against eager "
+                          f"(deterministic kernels): {equal} of "
+                          f"{len(pairs)} tensors (metrics of {TOPK_STEPS} "
+                          f"steps, the step, parameters, Adam's state) "
+                          f"equal bit for bit, max |diff| {diff:.3e}")
+            if equal != len(pairs):
+                raise AssertionError(f"{tag}: the captured {name_b} branch "
+                                     f"differs from eager")
+        seg = c["seg"]
+        per_replay = {("top-K" if t else "full"): p
+                      for t, (_, p) in seg.tails.items()}
+        phase("topk", f"{tag}: generators equal "
+                      f"{torch.equal(c['gen'], e['gen'])}; launches K1-K4 "
+                      f"of the captured run {c['launches']} (eager "
+                      f"{e['launches']}); per replay of A {seg.per_replay},"
+                      f" of each B {per_replay}; N of each Python launch "
+                      f"(the warm-up, then the B captures) K1 "
+                      f"{c['sizes']['K1']}, ordered {c['sizes']['ordered']}")
+        if not torch.equal(c["gen"], e["gen"]) or \
+                c["launches"] != e["launches"]:
+            raise AssertionError(f"{tag}: generator or launches differ")
+        if mode == "reference":
+            # (b) K1/K2 on the captured path's compositor inputs, both
+            # branches, against their plain versions, timed with bounds
+            for i, kk in ((0, 0), (1, k)):
+                rows[f"{name} N={kk or 256}"] = topk_kernel_rows(
+                    K, c["calls"][i][2], kk, card, dev)
+        del runs, seg
+
+        # (c) eager against captured ms/step in turns, in each branch; the
+        # first call's time (warm-up and three captures) and memory
+        gib = 2.0 ** 30
+        for sparse in (False, True):
+            times = {"eager": [], "captured": []}
+            for arm in ("eager", "captured", "captured", "eager"):
+                state = create_train_state(cfg, device=dev)
+                if sparse:
+                    shift_presence_(state.model, TOPK_SPARSE_BIAS)
+                fn = make_train_step(cfg, datagen=datagen,
+                                     steps_per_call=TOPK_STEPS,
+                                     eager=arm == "eager")
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(dev)
+                t0 = time.perf_counter()
+                fn(state)
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                grown = torch.cuda.memory_reserved(dev) - reserved
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(state)
+                end.record()
+                torch.cuda.synchronize()
+                ms = start.elapsed_time(end) / TOPK_STEPS
+                times[arm].append(ms)
+                if arm == "captured" and len(times[arm]) == 1:
+                    phase("topk", f"{tag}, {'top-K' if sparse else 'full'}"
+                                  f": the first call of a captured step "
+                                  f"({TOPK_STEPS} steps: the eager warm-up "
+                                  f"step, the captures of A and both Bs, "
+                                  f"{TOPK_STEPS - 1} replays) {first:.3f} "
+                                  f"s; reserved memory +{grown / gib:.3f} "
+                                  f"GiB over it (host clock; {card})")
+                if fn.branches.last != [sparse] * TOPK_STEPS:
+                    raise AssertionError(f"{tag}: timed steps took "
+                                         f"{fn.branches.last}")
+                del state, fn
+            ea, ca = (sum(times[a]) / 2 for a in ("eager", "captured"))
+            b = cfg.batch_size
+            eager_ms, captured_ms = (', '.join(f"{x:.3f}" for x in times[a])
+                                     for a in ("eager", "captured"))
+            phase("topk", f"{tag}, {'top-K' if sparse else 'full'} branch: "
+                          f"eager {eager_ms} against captured {captured_ms}"
+                          f" ms/step in turns (eager, captured, captured, "
+                          f"eager; CUDA events over a call of {TOPK_STEPS} "
+                          f"after the first): {ea / ca:.2f}x, "
+                          f"{b / ca * 1e3:.1f} against {b / ea * 1e3:.1f} "
+                          f"img/s ({card})")
+
+        # (d) the eval step and evaluate, captured against eager, each
+        # branch
+        x = generate_batch(torch.Generator(device=dev).manual_seed(190),
+                           datagen[1], cfg.batch_size, dcfg)[0]
+        for sparse in (False, True):
+            state = create_train_state(cfg, device=dev)
+            if sparse:
+                shift_presence_(state.model, TOPK_SPARSE_BIAS)
+            which = "top-K" if sparse else "full"
+            out, steps, gens = {}, {}, {}
+            with Deterministic():
+                for eager in (True, False):
+                    steps[eager] = make_eval_step(cfg, eager=eager)
+                    gens[eager] = torch.Generator(device=dev).manual_seed(7)
+                    out[eager] = [steps[eager](state.model, x, 1500,
+                                               gens[eager])
+                                  for _ in range(3)]
+            equal, total = same_tree(out[False], out[True])
+            counts = dict(steps[False].branches.counts)
+            t = [cuda_ms(lambda e=e: steps[e](state.model, x, 1500,
+                                              gens[e]), n, warmup=1)
+                 for e, n in ((True, 2), (False, 10), (False, 10),
+                              (True, 2))]
+            phase("topk", f"{tag} eval step, {which} branch: captured "
+                          f"against eager over 3 calls (deterministic "
+                          f"kernels): {equal} of {total} tensors equal bit "
+                          f"for bit; captured branches {counts}; eager "
+                          f"{t[0]:.3f}, {t[3]:.3f} against captured "
+                          f"{t[1]:.3f}, {t[2]:.3f} ms/call in turns "
+                          f"({(t[0] + t[3]) / (t[1] + t[2]):.2f}x; {card})")
+            if equal != total or counts["topk" if sparse else "full"] != 3:
+                raise AssertionError(f"{tag}: the captured eval step "
+                                     f"differs or took {counts}")
+            kw = dict(digits="font", det_threshold=0.5, det_nms=0.5)
+            (want, _, _), t_e = host_timed(lambda: evaluate(
+                cfg, state, 4, eager=True, **kw))
+            (got, _, _), t_1 = host_timed(lambda: evaluate(cfg, state, 4,
+                                                           **kw))
+            (again, _, _), t_2 = host_timed(lambda: evaluate(cfg, state, 4,
+                                                             **kw))
+            (program,) = _CAPTURES[state.model]["programs"].values()
+            phase("topk", f"{tag} evaluate(batches=4), {which} branch: "
+                          f"captured equal to eager {got == want}, again "
+                          f"{again == got}; captured branches "
+                          f"{program.branches.counts}; eager {t_e:.3f} s, "
+                          f"captured {t_1:.3f} s (first call, 3 captures), "
+                          f"{t_2:.3f} s (reused) (host clock; {card})")
+            if not (got == want == again) or program.branches.counts[
+                    "topk" if sparse else "full"] != 8:
+                raise AssertionError(f"{tag}: captured evaluate differs or "
+                                     f"took {program.branches.counts}")
+            del state, steps, out, program
+    phase("topk", f"phase 19 in {time.perf_counter() - t_phase:.1f} s")
+    return launches, rows
+
+
 def failed_capture_phase(dev):
     """Phases 17(j) and 18(d), last in the run since each leaves a failed
     capture behind: a host read injected into the captured train step and
@@ -2757,6 +3135,9 @@ def main():
 
     # 18. the forward programs captured as CUDA graphs
     forward_k = forward_phase(card, dev)
+
+    # 19. render_topk captured as segments around the render's branch
+    topk_k, _ = topk_phase(K, card, dev)
     failed_capture_phase(dev)
     # each path's own launches, from its own run with the counts set to 0
     # just before it: `launches` is the main path's (phase 9, K1/K2) or the
@@ -2771,7 +3152,7 @@ def main():
     for name, counts in {**bench_k,
                          **{f"captured_k{CAPTURED_K}_{b}": n
                             for b, n in captured_k.items()},
-                         **forward_k}.items():
+                         **forward_k, **topk_k}.items():
         for path, n in zip(paths, counts):
             if n:
                 path[name] = n

@@ -14,8 +14,10 @@ batch (``utils/viz.py``; needs matplotlib).
 
 On a CUDA device each batch of ``evaluate`` is one captured CUDA graph
 (forward, the match tables at the four AP thresholds, the metrics, the
-detector and the calibrated NMS), and so is each NMS setting's batch of
-``calibrate``: the counterparts of the JAX package's jitted ``run``s. The
+detector and the calibrated NMS), or with ``render_topk`` two segments
+around the render's branch (``captured.SegmentedForward``), and each NMS
+setting's batch of ``calibrate`` is one graph: the counterparts of the JAX
+package's jitted ``run``s. The
 host reads (``.cpu()``, ``average_precision``) follow each replay. The
 captures are kept by model, so the evaluations ``train()`` runs every
 ``eval_every`` steps reuse one; ``evaluate`` re-seeds the generator
@@ -40,8 +42,10 @@ import torch
 from spair_pytorch_tpu_torch import metrics as metric
 from spair_pytorch_tpu_torch.config import PRESETS, config_from_json
 from spair_pytorch_tpu_torch.models.infer import detect, nms_keep_batch
-from spair_pytorch_tpu_torch.models.spair import forward
+from spair_pytorch_tpu_torch.models.render import takes_topk, topk_branches
+from spair_pytorch_tpu_torch.models.spair import forward_head, forward_tail
 from spair_pytorch_tpu_torch.parallel.captured import (CapturedForward,
+                                                       SegmentedForward,
                                                        forward_eager_reason)
 from spair_pytorch_tpu_torch.parallel.train_step import create_train_state
 
@@ -66,10 +70,13 @@ def _data(cfg, data, seed, digits, device):
 _CAPTURES = weakref.WeakKeyDictionary()
 
 
-def _captured(model, key, program, draws: bool = False):
+def _captured(model, key, program, draws: bool = False, tail=None):
     """The captured ``program`` of ``model`` under ``key``, made at its
     first use; with ``draws``, ``program`` takes a ``generator`` and gets
-    one of its own, registered with its graphs."""
+    one of its own, registered with its graphs. With ``tail``, ``program``
+    is the head of a program segmented at the render's branch and ``tail``
+    its rest (``captured.SegmentedForward``; the carry's predicate is
+    forward_head's)."""
     if model not in _CAPTURES:
         _CAPTURES[model] = {"pool": torch.cuda.graph_pool_handle(),
                             "programs": {}}
@@ -79,17 +86,46 @@ def _captured(model, key, program, draws: bool = False):
         if draws:
             gen = torch.Generator(device=next(model.parameters()).device)
             program = partial(program, generator=gen)
-        entry["programs"][key] = CapturedForward(program, generator=gen,
-                                                 pool=entry["pool"])
+        if tail is None:
+            made = CapturedForward(program, generator=gen, pool=entry["pool"])
+        else:
+            made = SegmentedForward(program, tail, _predicate, generator=gen,
+                                    pool=entry["pool"])
+        entry["programs"][key] = made
     return entry["programs"][key]
+
+
+def _predicate(carry):
+    return carry[0]["live_at_most_k"]
 
 
 def _eval_batch(params, x, gt_bbox, gt_count, step, *, cfg, generator,
                 det_threshold, det_nms, early_exit):
     """One batch of ``evaluate``, all on the device: (the metric dict, the
-    match tables (scores, tp, n_gt) at each AP threshold, forward's aux)."""
+    match tables (scores, tp, n_gt) at each AP threshold, forward's aux).
+    It is ``_eval_head``, the render's branch read on the host, then
+    ``_eval_tail``."""
+    carry = _eval_head(params, x, gt_bbox, gt_count, step, cfg=cfg,
+                       generator=generator)
+    return _eval_tail(params, carry, takes_topk(_predicate(carry)), cfg=cfg,
+                      det_threshold=det_threshold, det_nms=det_nms,
+                      early_exit=early_exit)
+
+
+def _eval_head(params, x, gt_bbox, gt_count, step, *, cfg, generator):
+    """``_eval_batch`` up to the render's top-K branch (``forward_head``);
+    the carry ``_eval_tail`` takes."""
+    return forward_head(params, cfg, x, step, generator), (x, gt_bbox,
+                                                           gt_count)
+
+
+def _eval_tail(params, carry, topk, *, cfg, det_threshold, det_nms,
+               early_exit):
+    """``_eval_batch`` from the render's branch on (the top-K composite
+    when ``topk``)."""
+    head, (x, gt_bbox, gt_count) = carry
     img_size = cfg.image_shape[-1]
-    _, aux = forward(params, cfg, x, step, generator)
+    _, aux = forward_tail(params, cfg, head, topk)
     z_where, z_pres = aux["z_where"], aux["z_pres"]
     tables = tuple(metric.match_predictions(z_where, z_pres, gt_bbox,
                                             gt_count, img_size,
@@ -143,6 +179,13 @@ def evaluate(cfg, state, batches: int = 32, data=None, seed: int = 1234,
         gen = torch.Generator(device=device)
         run = partial(_eval_batch, generator=gen, early_exit=True,
                       **options)
+    elif topk_branches(cfg):
+        run = _captured(state.model, ("evaluate", device,
+                                      *options.values()),
+                        partial(_eval_head, cfg=cfg), draws=True,
+                        tail=partial(_eval_tail, early_exit=False,
+                                     **options))
+        gen = run.generator
     else:
         run = _captured(state.model, ("evaluate", device,
                                       *options.values()),
@@ -199,8 +242,7 @@ def calibrate(cfg, state, batches: int = 8, data=None, seed: int = 4321,
     device = state.step.device
     data = _data(cfg, data, seed, digits, device)
     th = torch.as_tensor(thresholds, dtype=torch.float32, device=device)
-    captured = not eager and forward_eager_reason(cfg, device,
-                                                  renders=False) is None
+    captured = not eager and forward_eager_reason(cfg, device) is None
     runs = {}
     for g in nms_grid:
         if captured:

@@ -138,7 +138,7 @@ def make_detector(cfg: SpairConfig, pres_threshold: float = 0.5,
         if run is None:
             from spair_pytorch_tpu_torch.parallel import captured
             if eager or captured.forward_eager_reason(
-                    cfg, x.device, renders=False) is not None:
+                    cfg, x.device) is not None:
                 run = partial(detect, **kw)
             else:
                 run = captured.CapturedForward(

@@ -19,10 +19,17 @@ objects of highest presence when no image has more than K live objects,
 which is exact, and the full grid otherwise: in ordered mode on every
 backend, in reference mode on the kernel backends ('pallas', 'auto'),
 where K1 and K2 then run on B x K objects; 'xla' and 'pallas_v3' ignore
-it, as in the JAX package. The JAX package branches on the device
-(``lax.cond``); here the host reads the largest live count, one device sync
-per render call, which a CUDA-graph capture of the step will have to take
-into account.
+it, as in the JAX package (``topk_branches``). The K are taken in
+``jax.lax.top_k``'s order, tied scores to the lower index: presence
+saturates at exactly 1.0, and in ordered mode the gathered order decides
+the compositing order of objects at equal depth.
+
+The JAX package branches on the device (``lax.cond``). Here ``render`` is
+three functions, so that a captured program can put its segments around
+the branch (``parallel/captured.py``): ``render_objects``, the part before
+it (the decoder, the gate and the branch's predicate, a 0-d bool tensor on
+the device); ``takes_topk``, which reads the predicate on the host, one
+device sync; and ``composite_objects``, one branch's composite.
 """
 
 from __future__ import annotations
@@ -133,10 +140,13 @@ def composite_ordered(color, alpha, z_depth_flat, z_where, image_hw,
 
 def _top_k(scores, k: int):
     """A gather of the K objects of highest score, in descending order of
-    score, as ``jax.lax.top_k`` returns them: take(t) maps (B, N, ...) to
-    (B, K, ...)."""
+    score and tied scores to the lower index, as ``jax.lax.top_k`` returns
+    them (``torch.topk`` promises no order among ties): take(t) maps
+    (B, N, ...) to (B, K, ...). A stable sort of the N scores, on the
+    device."""
     b = scores.shape[0]
-    idx = torch.topk(scores, k, dim=1, sorted=True).indices      # (B, K)
+    idx = torch.sort(scores, dim=1, descending=True,
+                     stable=True).indices[:, :k]                  # (B, K)
 
     def take(t):
         return torch.take_along_dim(
@@ -144,13 +154,26 @@ def _top_k(scores, k: int):
     return take
 
 
-def _live_at_most(gate, k: int) -> bool:
-    """Whether no image has more than ``k`` live objects. The live objects
-    are counted in int32, exact for any grid (the compute dtype's integers
-    are exact only so far: bf16 to 256); reading the count is one host
-    sync."""
-    live = torch.sum((gate > 0).to(torch.int32), dim=1)
-    return int(torch.max(live)) <= k
+def topk_branches(cfg: SpairConfig) -> bool:
+    """Whether ``render`` of ``cfg`` branches on the live count: a
+    ``render_topk`` K below the grid's object count, in ordered mode or on
+    the kernel backends ('pallas', 'auto'). Read from the configuration
+    alone, so a program can be laid out before it runs."""
+    _, (gh, gw), _ = grid_geometry(cfg.image_shape[1:], cfg.backbone_topology)
+    return _branches(cfg, gh * gw * cfg.n_object_slots)
+
+
+def _branches(cfg: SpairConfig, n: int) -> bool:
+    return 0 < cfg.render_topk < n and (
+        cfg.render_mode == "ordered"
+        or cfg.render_backend in ("pallas", "auto"))
+
+
+def takes_topk(live_at_most_k) -> bool:
+    """The branch ``render`` takes on the predicate of ``render_objects``:
+    the top-K composite when it holds (reading it is one host sync); the
+    full composite when it does not, or is None (no branch)."""
+    return live_at_most_k is not None and bool(live_at_most_k)
 
 
 def composite_ungated(cfg: SpairConfig, color, alpha, importance, boxes,
@@ -184,17 +207,19 @@ def paste_window_rows(cfg: SpairConfig, image_hw):
     return min(ih, -(-(span + 7) // 8) * 8)
 
 
-def render(params, cfg: SpairConfig, z_attr, z_where, z_depth, z_pres,
-           image_hw, dtype=None):
-    """Latent grids (B, gh, gw, ·) -> reconstruction (B, C, H, W) in [0, 1].
+def render_objects(params, cfg: SpairConfig, z_attr, z_where, z_depth,
+                   z_pres, dtype=None):
+    """The part of ``render`` before its top-K branch: (objects,
+    live_at_most_k).
 
-    ``dtype`` is the decoder's compute dtype; its outputs, and so the
-    glimpses the compositor sees, are float32 either way. With
-    ``pres_gate_threshold`` > 0, objects whose z_pres is not above it are
-    left out of the composite (den keeps their 1e-9 floor) and get no
-    reconstruction gradient: K1 and K2 skip them; the plain compositor and
-    'pallas_v3' mask their glimpses, as the JAX package does; ordered mode
-    zeroes their alpha. ``render_topk`` as the module docstring says."""
+    ``objects`` holds the decoded glimpses (``decode_objects``; in ordered
+    mode alpha already gated), the boxes, depths and presence scores
+    flattened to (B, N, ·), the gate (B, N) or None, and the grid (gh, gw).
+    ``live_at_most_k`` is the branch's predicate where ``topk_branches``
+    says render branches: a 0-d bool tensor on the device, whether no image
+    has more than K live objects, counted in int32 (exact for any grid; the
+    compute dtype's integers are exact only so far: bf16 to 256); None
+    otherwise."""
     b, gh, gw = z_attr.shape[:3]
     n = gh * gw
 
@@ -203,41 +228,53 @@ def render(params, cfg: SpairConfig, z_attr, z_where, z_depth, z_pres,
 
     color, alpha, importance = decode_objects(
         params, cfg, flat(z_attr), flat(z_pres), flat(z_depth), dtype)
-    boxes = flat(z_where).contiguous()
     gate = None
     if cfg.pres_gate_threshold > 0.0:
         gate = (flat(z_pres)[..., 0] > cfg.pres_gate_threshold).to(
             torch.float32).contiguous()                     # (B, N)
-    topk = 0 < cfg.render_topk < n
+    branches = _branches(cfg, n)
+    if branches and gate is None:
+        raise ValueError(_TOPK_NEEDS_GATE)
+    if cfg.render_mode == "ordered" and gate is not None:
+        alpha = alpha * gate[:, :, None, None, None]
+    objects = {"color": color, "alpha": alpha, "importance": importance,
+               "boxes": flat(z_where).contiguous(), "depth": flat(z_depth),
+               "scores": flat(z_pres)[..., 0], "gate": gate, "grid": (gh, gw)}
+    live_at_most_k = None
+    if branches:
+        live = torch.sum((gate > 0).to(torch.int32), dim=1)
+        live_at_most_k = torch.max(live) <= cfg.render_topk
+    return objects, live_at_most_k
+
+
+def composite_objects(cfg: SpairConfig, objects, image_hw, topk: bool):
+    """The part of ``render`` after its branch: the reconstruction (B, C,
+    H, W) in [0, 1] of ``render_objects``' objects, composited from the K
+    of highest presence when ``topk`` and from all of them otherwise.
+
+    The top-K composite is exact when no image has more than K live
+    objects: gated objects have alpha exactly 0 in ordered mode, identities
+    of the over operator, and the kernels skip them in reference mode,
+    where den keeps the floor of all n objects (``den_floor_n``); the
+    objects left out get exact zero gradients through the gather, as the
+    gate gave them."""
+    color, alpha, importance = (objects[k] for k in ("color", "alpha",
+                                                     "importance"))
+    boxes, gate = objects["boxes"], objects["gate"]
+    n = color.shape[1]
+    take = _top_k(objects["scores"], cfg.render_topk) if topk else None
 
     if cfg.render_mode == "ordered":
-        if gate is not None:
-            alpha = alpha * gate[:, :, None, None, None]
-        args = (color, alpha, flat(z_depth), boxes)
-        if topk:
-            if gate is None:
-                raise ValueError(_TOPK_NEEDS_GATE)
-            # gated objects have alpha exactly 0, identities of the over
-            # operator: the K objects of highest presence hold every live
-            # one when no image has more than K, and the result is exact,
-            # values and gradients; otherwise the full scan runs
-            if _live_at_most(gate, cfg.render_topk):
-                take = _top_k(flat(z_pres)[..., 0], cfg.render_topk)
-                args = tuple(map(take, args))
+        args = (color, alpha, objects["depth"], boxes)
+        if take is not None:
+            args = tuple(map(take, args))
         out = composite_ordered(*args, image_hw, cfg.render_chunk)
         return torch.clamp(out, 0.0, 1.0)
 
     backend = cfg.render_backend
     if backend in ("pallas", "auto"):
         win = paste_window_rows(cfg, image_hw)
-        if topk and gate is None:
-            raise ValueError(_TOPK_NEEDS_GATE)
-        if topk and _live_at_most(gate, cfg.render_topk):
-            # the gathered K objects hold every live one; K1/K2 run on
-            # B x K objects, gate-skip the dead among them, and den keeps
-            # the floor of all n objects; the objects left out get exact
-            # zero gradients through the gather, as the gate gave them
-            take = _top_k(flat(z_pres)[..., 0], cfg.render_topk)
+        if take is not None:
             num, den = composite(take(color), take(alpha), take(importance),
                                  take(boxes), image_hw, win,
                                  pres_gate=take(gate), den_floor_n=n)
@@ -251,6 +288,7 @@ def render(params, cfg: SpairConfig, z_attr, z_where, z_depth, z_pres,
         if gate is not None:
             g = gate[:, :, None, None, None]
             color, alpha, importance = color * g, alpha * g, importance * g
+        gh, gw = objects["grid"]
         _, _, (cell_h, _) = grid_geometry(image_hw, cfg.backbone_topology)
         max_ys = cfg.max_hw * cfg.anchor_shape[0] / cfg.image_shape[1]
         num, den = composite_v3(color, alpha, importance, boxes, image_hw,
@@ -261,3 +299,22 @@ def render(params, cfg: SpairConfig, z_attr, z_where, z_depth, z_pres,
         raise NotImplementedError(
             f"render_backend {backend!r} is not ported yet")
     return torch.clamp(num / den, 0.0, 1.0)
+
+
+def render(params, cfg: SpairConfig, z_attr, z_where, z_depth, z_pres,
+           image_hw, dtype=None):
+    """Latent grids (B, gh, gw, ·) -> reconstruction (B, C, H, W) in [0, 1].
+
+    ``dtype`` is the decoder's compute dtype; its outputs, and so the
+    glimpses the compositor sees, are float32 either way. With
+    ``pres_gate_threshold`` > 0, objects whose z_pres is not above it are
+    left out of the composite (den keeps their 1e-9 floor) and get no
+    reconstruction gradient: K1 and K2 skip them; the plain compositor and
+    'pallas_v3' mask their glimpses, as the JAX package does; ordered mode
+    zeroes their alpha. ``render_topk`` as the module docstring says:
+    ``render_objects``, the predicate read on the host (``takes_topk``),
+    then ``composite_objects``."""
+    objects, live_at_most_k = render_objects(params, cfg, z_attr, z_where,
+                                             z_depth, z_pres, dtype)
+    return composite_objects(cfg, objects, image_hw,
+                             takes_topk(live_at_most_k))

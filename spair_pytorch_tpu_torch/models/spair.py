@@ -34,13 +34,15 @@ from spair_pytorch_tpu_torch.models.kl import (count_prior_kl,
 from spair_pytorch_tpu_torch.models.latents import (apply_self_attn,
                                                     cell_step, geometry,
                                                     init_params, sample_noise)
-from spair_pytorch_tpu_torch.models.render import render
+from spair_pytorch_tpu_torch.models.render import (composite_objects,
+                                                   render_objects, takes_topk)
 from spair_pytorch_tpu_torch.ops.math import binary_cross_entropy_sum, safe_log
 from spair_pytorch_tpu_torch.ops.schedules import exponential_decay
 from spair_pytorch_tpu_torch.utils.debug import nan_hunter
 
-__all__ = ["init_params", "forward", "infer_latents", "loss_and_metrics",
-           "geometry", "inference_schedule", "neighbor_offsets"]
+__all__ = ["init_params", "forward", "forward_head", "forward_tail",
+           "infer_latents", "loss_and_metrics", "geometry",
+           "inference_schedule", "neighbor_offsets"]
 
 
 def neighbor_offsets(n_lookback: int = 1):
@@ -223,21 +225,51 @@ def forward(params, cfg: SpairConfig, x, step, generator=None, noise=None,
     ``batch_share``: the share of a global batch that x is (data
     parallelism): the batch-mean terms are scaled by it, so the losses of
     the ranks' slices sum to the global batch's loss (the reconstruction
-    term is already a sum over the batch)."""
+    term is already a sum over the batch).
+
+    It is ``forward_head``, the render's branch read on the host
+    (``render.py::takes_topk``; no read without ``render_topk``), then
+    ``forward_tail``: the two segments a captured program puts around the
+    branch."""
+    head = forward_head(params, cfg, x, step, generator, noise)
+    return forward_tail(params, cfg, head, takes_topk(head["live_at_most_k"]),
+                        batch_share)
+
+
+def forward_head(params, cfg: SpairConfig, x, step, generator=None,
+                 noise=None):
+    """``forward`` up to the render's top-K branch: inference, the KLs, the
+    object decoder and the gate (``render.py::render_objects``). Returns
+    what ``forward_tail`` takes: x, the latents ``z``, the ``kls``, the
+    decoded ``objects`` and the branch's predicate ``live_at_most_k`` (a
+    0-d bool tensor on the device, or None when render does not branch)."""
     z = infer_latents(params, cfg, x, step, generator, noise)
+    nan_hunter("after inference", z_where=z["z_where"], z_pres=z["z_pres"],
+               z_depth=z["z_depth"], feat=z["feat_flat"])
+
+    kls = independent_kl(z["posterior"], z["z_pres"], cfg)
+    count_kl = (count_prior_kl_parallel if cfg.count_prior_parallel
+                else count_prior_kl)
+    kls["pres_dist"] = count_kl(z["z_pres_prob"], z["z_pres"], step, cfg)
+    nan_hunter("KL divergence", **kls)
+    objects, live_at_most_k = render_objects(
+        params, cfg, z["z_attr"], z["z_where"], z["z_depth"], z["z_pres"],
+        compute_dtype(cfg))
+    return {"x": x, "z": z, "kls": kls, "objects": objects,
+            "live_at_most_k": live_at_most_k}
+
+
+def forward_tail(params, cfg: SpairConfig, head, topk: bool,
+                 batch_share: float = 1.0):
+    """``forward`` from the render's branch on: one branch's composite
+    (the top-K one when ``topk``, ``render.py::composite_objects``), the
+    loss and its terms; (loss, aux) as ``forward`` returns them."""
+    x, z, kls = head["x"], head["z"], head["kls"]
     z_where, z_attr = z["z_where"], z["z_attr"]
     z_depth, z_pres = z["z_depth"], z["z_pres"]
     z_pres_prob, tw = z["z_pres_prob"], z["training_wheel"]
-    nan_hunter("after inference", z_where=z_where, z_pres=z_pres,
-               z_depth=z_depth, feat=z["feat_flat"])
-
-    kls = independent_kl(z["posterior"], z_pres, cfg)
-    count_kl = (count_prior_kl_parallel if cfg.count_prior_parallel
-                else count_prior_kl)
-    kls["pres_dist"] = count_kl(z_pres_prob, z_pres, step, cfg)
-    nan_hunter("KL divergence", **kls)
-    recon = render(params, cfg, z_attr, z_where, z_depth, z_pres,
-                   cfg.image_shape[1:], compute_dtype(cfg)).to(torch.float32)
+    recon = composite_objects(cfg, head["objects"], cfg.image_shape[1:],
+                              topk).to(torch.float32)
     nan_hunter("render", recon=recon)
     loss, terms = loss_and_metrics(x, recon, kls, cfg, batch_share)
 

@@ -34,14 +34,32 @@ counts once and a replay never. ``CapturedStep`` takes back what the
 capture counted and adds each wrapper's launches of one step on every
 replay, so the counts read what the card launched.
 
+The top-K branch. With ``render_topk`` the JAX step branches on the
+device (``lax.cond``); torch exposes no conditional graph node to Python,
+so ``SegmentedStep`` does what XLA's GPU backend long did for a
+``lax.cond``: it captures the step as segments around the branch. Segment
+A is the step up to the branch (scenes, the forward up to the decoder, the
+gate and the predicate, ``models/render.py::render_objects``); segment B
+is one branch's composite, the loss, the backward, clipping, Adam and
+``state.step += 1``, captured once for each branch. A step replays A,
+copies the 0-d predicate to the host (one read a step, outside every
+graph) and replays the B it names, so the branch not taken does no device
+work. B's backward runs through A's autograd graph, whose saved tensors
+are A's static outputs: the first B capture keeps that graph
+(``retain_graph=True``) for the second, and all three graphs share one
+memory pool. Both Bs write the same gradients and the same static metrics.
+The state's generator is registered with A alone: B draws nothing (a draw
+there would raise at its capture, and the warm-up checks it). Which branch
+each step took is counted on the host (``Branches``). Without
+``render_topk`` the step is one graph, as above.
+
 What stays eager (``eager_reason``) is decided from the configuration
-before any capture, never on a failure; a capture that fails raises, and
-the step is not retried. These are the next captures, in this order:
+before any capture, never on a failure; a capture that fails (of any
+segment) raises, and the step is not retried. These are the next captures,
+in this order:
 
 - the CPU: no CUDA graphs there; every CPU caller keeps the eager step;
 - ``mesh``: NCCL's all-reduce inside a capture is a later slice;
-- ``render_topk``: ``models/render.py::_live_at_most`` branches on the host
-  where the JAX package uses ``lax.cond``;
 - the NaN hunter and the whole-program NaN check (``utils/debug.py``): they
   read flags on the host every call.
 
@@ -57,21 +75,26 @@ every later call copies its inputs into the graph's static buffers,
 replays, and returns copies of the outputs. It is bound to the addresses
 of the parameters and buffers it was first called with (loading a state
 dict copies in place and passes) and to the generator registered with it.
-``forward_eager_reason`` keeps these programs eager on the CPU, under the
-NaN hunter and, for the programs that render, with ``render_topk``; the
-detector renders nothing, so every preset's is captured. The refiner
-(``models/refine.py``) and ``mesh`` stay eager.
+``SegmentedForward`` is its form for a program that renders with
+``render_topk`` (the eval step and ``evaluate``'s batch program): for each
+shape a graph of the program up to the branch and one of each branch's
+rest, replayed around the host's read of the predicate, as the step's
+segments are. ``forward_eager_reason`` keeps these programs eager on the
+CPU and under the NaN hunter. The refiner (``models/refine.py``) and
+``mesh`` stay eager.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 from typing import Optional
 
 import torch
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from spair_pytorch_tpu_torch.config import SpairConfig
+from spair_pytorch_tpu_torch.models.render import takes_topk
 from spair_pytorch_tpu_torch.ops.kernels import composite as _k12
 from spair_pytorch_tpu_torch.ops.kernels import composite_v3 as _k34
 from spair_pytorch_tpu_torch.utils.debug import host_checks_on
@@ -89,17 +112,12 @@ def eager_reason(cfg: SpairConfig, device, mesh=None) -> Optional[str]:
     return forward_eager_reason(cfg, device)
 
 
-def forward_eager_reason(cfg: SpairConfig, device,
-                         renders: bool = True) -> Optional[str]:
+def forward_eager_reason(cfg: SpairConfig, device) -> Optional[str]:
     """Why a program of ``cfg`` on ``device`` runs eagerly, or None when it
-    is captured. ``renders``: whether the program renders (the detector
-    does not, so ``render_topk`` leaves it captured)."""
+    is captured."""
     device = torch.device(device)
     if device.type != "cuda":
         return f"{device.type} device: CUDA graphs need a CUDA device"
-    if renders and cfg.render_topk:
-        return ("render_topk: models/render.py::_live_at_most reads the "
-                "live count on the host")
     if host_checks_on():
         return "the NaN hunter reads its flags on the host"
     return None
@@ -133,14 +151,22 @@ def _capture(graph, fn, device, generator=None, pool=None):
     registered with it: (fn's result, the graph's static outputs; the
     launches of one replay, per COUNTED wrapper). The wrappers count
     Python calls, so what the capture counted is taken back: it launched
-    nothing on the card. A capture that raises is not retried."""
+    nothing on the card. A capture that raises is not retried.
+
+    The garbage collector is off during the capture (``torch.cuda.graph``
+    collects just before it): a graph it freed mid-capture, one left in a
+    reference cycle, would invalidate the capture."""
     before = [w.launches for w in COUNTED]
     if generator is not None:
         graph.register_generator_state(generator)
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.graph(graph, pool=pool, stream=_side_stream(device)):
             out = fn()
     finally:
+        if collecting:
+            gc.enable()
         per_replay = [w.launches - n for w, n in zip(COUNTED, before)]
         for w, n in zip(COUNTED, before):
             w.launches = n
@@ -153,15 +179,52 @@ def _replayed(per_replay):
         w.launches += n
 
 
+class Branches:
+    """The render branch each step of a segmented program took, counted on
+    the host: ``counts`` over every call ('topk', 'full'), and ``last``,
+    the branches of the last call's steps in order (True for top-K); a
+    forward program's call is one step."""
+
+    def __init__(self):
+        self.counts = {"topk": 0, "full": 0}
+        self.last = []
+
+    def new_call(self):
+        self.last = []
+
+    def took(self, topk: bool):
+        self.counts["topk" if topk else "full"] += 1
+        self.last.append(topk)
+
+
+def _draws_nothing(generator, fn):
+    """``fn()``, checked to leave ``generator`` where it was: a segment
+    after the branch must draw nothing, since the generator is registered
+    with the segment before it alone."""
+    before = generator.get_state()
+    out = fn()
+    if not torch.equal(before, generator.get_state()):
+        raise RuntimeError("the segment after the render's branch drew from "
+                           "the generator; only the segment before it may")
+    return out
+
+
+def _state_tensors(state):
+    """The step, the parameters, their gradients and Adam's state tensors:
+    what a step writes in place."""
+    out = [state.step]
+    for p in state.model.parameters():
+        out += [p] if p.grad is None else [p, p.grad]
+    for s in state.optimizer.state.values():
+        out += [v for v in s.values() if torch.is_tensor(v)]
+    return tuple(out)
+
+
 def _addresses(state):
     """What the graph is bound to: the generator and the addresses of the
     step, the parameters, their gradients and Adam's state tensors."""
-    ptrs = [state.step.data_ptr()]
-    for p in state.model.parameters():
-        ptrs += [p.data_ptr(), 0 if p.grad is None else p.grad.data_ptr()]
-    for s in state.optimizer.state.values():
-        ptrs += [v.data_ptr() for v in s.values() if torch.is_tensor(v)]
-    return id(state.generator), tuple(ptrs)
+    return id(state.generator), tuple(t.data_ptr()
+                                      for t in _state_tensors(state))
 
 
 class CapturedStep:
@@ -174,6 +237,7 @@ class CapturedStep:
         self.one_step = one_step
         self.k = steps_per_call
         self.graph = None       # set before the capture: never retried
+        self.ready = False      # set when every capture has succeeded
         self.static_in = ()     # the batch buffers the graph reads
         self.static_out = None  # the step's metrics, stacked, (M,)
         self.keys = None
@@ -184,7 +248,7 @@ class CapturedStep:
         first = None
         if self.graph is None:
             first = self._warm_up_and_capture(state, batch)
-        elif self.static_out is None:
+        elif not self.ready:
             raise RuntimeError("this step's capture failed; build a new "
                                "step with make_train_step")
         else:
@@ -202,12 +266,15 @@ class CapturedStep:
         if first is not None:
             out[:, 0].copy_(first)
         for i in range(0 if first is None else 1, self.k):
-            self.graph.replay()
-            _replayed(self.per_replay)
+            self._replay()
             out[:, i].copy_(self.static_out)
         if self.k == 1:
             return state, {k: out[j, 0] for j, k in enumerate(self.keys)}
         return state, {k: out[j] for j, k in enumerate(self.keys)}
+
+    def _replay(self):
+        self.graph.replay()
+        _replayed(self.per_replay)
 
     def _load(self, batch):
         if len(batch) != len(self.static_in) or any(
@@ -238,6 +305,87 @@ class CapturedStep:
             self.graph, lambda: self._stacked(state, self.static_in), device,
             state.generator)
         self.bound = _addresses(state)
+        self.ready = True
+        return first
+
+
+class SegmentedStep(CapturedStep):
+    """``CapturedStep`` for a step with the render's top-K branch (module
+    docstring): ``head(state, *batch) -> carry`` up to the branch,
+    ``predicate(carry)`` its 0-d bool tensor, ``tail(state, carry, topk,
+    retain_graph) -> metrics`` the rest; ``branches`` (a ``Branches``)
+    counts the branch of every step, the first call's eager one too."""
+
+    def __init__(self, head, tail, predicate, steps_per_call: int = 1,
+                 branches: Optional[Branches] = None):
+        super().__init__(None, steps_per_call)
+        self.head, self.tail, self.predicate = head, tail, predicate
+        self.branches = Branches() if branches is None else branches
+        self.pred = None   # A's static predicate
+        self.carry = None  # A's static outputs, which the Bs read
+        self.tails = {}    # topk -> (B's graph, launches of one replay)
+
+    def _replay(self):
+        self.graph.replay()
+        _replayed(self.per_replay)
+        topk = takes_topk(self.pred)  # the one host read of a step
+        self.branches.took(topk)
+        graph, per_replay = self.tails[topk]
+        graph.replay()
+        _replayed(per_replay)
+
+    def _tail_stacked(self, state, carry, topk, retain_graph=False):
+        metrics = self.tail(state, carry, topk, retain_graph)
+        if list(metrics) != self.keys:
+            raise RuntimeError("the two branches return other metrics")
+        return torch.stack([metrics[k] for k in self.keys])
+
+    def _eager_step(self, state, batch):
+        carry = self.head(state, *batch)
+        topk = takes_topk(self.predicate(carry))
+        self.branches.took(topk)
+        metrics = _draws_nothing(state.generator,
+                                 lambda: self.tail(state, carry, topk))
+        self.keys = list(metrics)
+        return torch.stack([metrics[k] for k in self.keys])
+
+    def _warm_up_and_capture(self, state, batch):
+        """One eager step on the side stream, then A and both Bs captured
+        on it into one pool; returns the eager step's metrics, stacked."""
+        device = state.step.device
+        first = _warm_up(device, lambda: self._eager_step(state, batch))
+        self.static_in = tuple(b.clone() for b in batch)
+        self.static_out = torch.empty_like(first)
+        pool = torch.cuda.graph_pool_handle()
+        self.graph = torch.cuda.CUDAGraph()
+        self.carry, self.per_replay = _capture(
+            self.graph, lambda: self.head(state, *self.static_in), device,
+            state.generator, pool)
+        self.pred = self.predicate(self.carry)
+        # the top-K B first: its backward keeps A's autograd graph, and so
+        # A's saved tensors, for the full B's backward, which frees it. A
+        # capture runs nothing, but autograd counts the in-place updates it
+        # records (Adam's of the parameters, which A's graph saved): their
+        # version counters are put back, as a replay of A and the full B
+        # finds the state
+        for topk in (True, False):
+            graph = torch.cuda.CUDAGraph()
+            with torch.autograd._unsafe_preserve_version_counter(
+                    _state_tensors(state)):
+                _, per_replay = _capture(
+                    graph, lambda t=topk: self.static_out.copy_(
+                        self._tail_stacked(state, self.carry, t,
+                                           retain_graph=t)), device,
+                    pool=pool)
+            self.tails[topk] = (graph, per_replay)
+        # the Bs read A's outputs at their addresses: keep the storage, not
+        # A's autograd graph, whose gradient accumulators would otherwise
+        # stay the parameters' in a later eager backward, on the capture's
+        # stream
+        self.carry = tree_map(
+            lambda t: t.detach() if torch.is_tensor(t) else t, self.carry)
+        self.bound = _addresses(state)
+        self.ready = True
         return first
 
 
@@ -264,6 +412,7 @@ class _Graph:
 
     def __init__(self):
         self.graph = None
+        self.ready = False
         self.static_in = ()
         self.static_out = None
         self.tree = None
@@ -301,7 +450,7 @@ class CapturedForward:
                                "cannot run it; build a new one")
         if entry is None:
             return self._warm_up_and_capture(key, params, inputs)
-        if entry.static_out is None:
+        if not entry.ready:
             raise RuntimeError("this program's capture failed for these "
                                "shapes; build a new program")
         for s, t in zip(entry.static_in, inputs):
@@ -309,10 +458,15 @@ class CapturedForward:
                 s.copy_(t)
             else:
                 s.fill_(t)
+        out = self._replay(entry)
+        return tree_unflatten([t.clone() for t in out.static_out], out.tree)
+
+    def _replay(self, entry):
+        """Replays ``entry``; returns the _Graph whose outputs hold the
+        result."""
         entry.graph.replay()
         _replayed(entry.per_replay)
-        return tree_unflatten([t.clone() for t in entry.static_out],
-                              entry.tree)
+        return entry
 
     def _warm_up_and_capture(self, key, params, inputs):
         """One eager run on the side stream, from the static inputs, which
@@ -331,4 +485,72 @@ class CapturedForward:
             device, self.generator, self.pool)
         entry.static_out, entry.tree = tree_flatten(out)
         self.bound = _module_addresses(params)
+        entry.ready = True
+        return first
+
+
+class SegmentedForward(CapturedForward):
+    """``CapturedForward`` for a program with the render's top-K branch
+    (module docstring): ``head(params, *inputs) -> carry`` up to the
+    branch, ``predicate(carry)`` its 0-d bool tensor and ``tail(params,
+    carry, topk)`` the rest, a tree of tensors. Each input shape has three
+    graphs in the program's pool: A (head) and a B for each branch;
+    ``branches`` counts the branch of every call."""
+
+    def __init__(self, head, tail, predicate,
+                 generator: Optional[torch.Generator] = None, pool=None,
+                 branches: Optional[Branches] = None):
+        # no program of its own: a bound method there would make a cycle
+        # that only the garbage collector frees, with the graphs in it
+        super().__init__(None, generator, pool)
+        self.head, self.tail, self.predicate = head, tail, predicate
+        self.branches = Branches() if branches is None else branches
+
+    def _eager(self, params, *inputs):
+        carry = self.head(params, *inputs)
+        topk = takes_topk(self.predicate(carry))
+        self.branches.new_call()
+        self.branches.took(topk)
+        if self.generator is None:
+            return self.tail(params, carry, topk)
+        return _draws_nothing(self.generator,
+                              lambda: self.tail(params, carry, topk))
+
+    def _replay(self, entry):
+        entry.graph.replay()
+        _replayed(entry.per_replay)
+        topk = takes_topk(entry.pred)  # the one host read of a call
+        self.branches.new_call()
+        self.branches.took(topk)
+        tail = entry.tails[topk]
+        tail.graph.replay()
+        _replayed(tail.per_replay)
+        return tail
+
+    def _warm_up_and_capture(self, key, params, inputs):
+        """One eager run on the side stream, from the static inputs, which
+        is this call's result; then A and both Bs captured on it."""
+        device = next(t.device for t in inputs if torch.is_tensor(t))
+        entry = _Graph()
+        entry.static_in = tuple(static_input(t, device) for t in inputs)
+        first = _warm_up(device, lambda: self._eager(params,
+                                                     *entry.static_in))
+        self.graphs[key] = entry  # from here on, never retried
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        entry.graph = torch.cuda.CUDAGraph()
+        entry.carry, entry.per_replay = _capture(
+            entry.graph, lambda: self.head(params, *entry.static_in),
+            device, self.generator, self.pool)
+        entry.pred = self.predicate(entry.carry)
+        entry.tails = {}
+        for topk in (True, False):
+            tail = entry.tails[topk] = _Graph()
+            tail.graph = torch.cuda.CUDAGraph()
+            out, tail.per_replay = _capture(
+                tail.graph, lambda t=topk: self.tail(params, entry.carry, t),
+                device, pool=self.pool)
+            tail.static_out, tail.tree = tree_flatten(out)
+        self.bound = _module_addresses(params)
+        entry.ready = True
         return first

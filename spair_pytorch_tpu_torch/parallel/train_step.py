@@ -11,8 +11,11 @@ On a CUDA device the step ``make_train_step`` returns is one captured CUDA
 graph, replayed once a step: K steps a call are K replays of it, as the JAX
 step is one device program with K steps scanned inside
 (``parallel/captured.py``, which also lists the configurations that stay
-eager: the CPU, ``mesh``, ``render_topk`` and the NaN hunter). The CPU runs
-the eager step.
+eager: the CPU, ``mesh`` and the NaN hunter). With ``render_topk`` it is
+two segments around the render's top-K branch, the JAX step's
+``lax.cond``: ``train_step_head`` up to it and ``train_step_tail`` after
+it, with the branch's predicate read on the host between them
+(``captured.SegmentedStep``). The CPU runs the eager step.
 
 With a ``mesh`` (``parallel/mesh.py``) the step is data parallel:
 ``cfg.batch_size`` is the global batch and each rank trains on its slice.
@@ -38,9 +41,13 @@ from spair_pytorch_tpu_torch.data import generate_batch
 from spair_pytorch_tpu_torch.data.sharded import generate_host_local
 from spair_pytorch_tpu_torch.models.latents import (SpairModel, geometry,
                                                     init_params, sample_noise)
-from spair_pytorch_tpu_torch.models.spair import forward
-from spair_pytorch_tpu_torch.parallel.captured import (CapturedForward,
+from spair_pytorch_tpu_torch.models.render import takes_topk, topk_branches
+from spair_pytorch_tpu_torch.models.spair import forward_head, forward_tail
+from spair_pytorch_tpu_torch.parallel.captured import (Branches,
+                                                       CapturedForward,
                                                        CapturedStep,
+                                                       SegmentedForward,
+                                                       SegmentedStep,
                                                        eager_reason,
                                                        forward_eager_reason)
 from spair_pytorch_tpu_torch.parallel.mesh import (Mesh, all_reduce_,
@@ -108,8 +115,22 @@ def train_step(cfg: SpairConfig, state: TrainState, x, gt_bbox=None,
 
     With ``mesh``, x is this rank's slice of the global batch and
     ``noise``, when given, its slice of the global noise; the metrics come
-    back reduced over the ranks."""
-    model, opt = state.model, state.optimizer
+    back reduced over the ranks.
+
+    It is ``train_step_head``, the render's branch read on the host
+    (``render.py::takes_topk``; no read without ``render_topk``), then
+    ``train_step_tail``."""
+    head = train_step_head(cfg, state, x, noise, mesh)
+    return train_step_tail(cfg, state, head,
+                           takes_topk(head["live_at_most_k"]), gt_bbox,
+                           gt_count, mesh)
+
+
+def train_step_head(cfg: SpairConfig, state: TrainState, x, noise=None,
+                    mesh: Optional[Mesh] = None):
+    """``train_step`` up to the render's top-K branch: the gradients
+    zeroed and ``forward_head``; returns its carry, with the batch share
+    the tail's loss needs."""
     batch_share = 1.0
     if mesh is not None:
         global_b = x.shape[0] * mesh.world_size
@@ -119,10 +140,23 @@ def train_step(cfg: SpairConfig, state: TrainState, x, gt_bbox=None,
             full = sample_noise(state.generator, global_b, geometry(cfg)[1],
                                 cfg, x.device)
             noise = {k: v[start:stop] for k, v in full.items()}
-    opt.zero_grad(set_to_none=False)
-    loss, aux = forward(model, cfg, x, state.step, state.generator, noise,
-                        batch_share=batch_share)
-    loss.backward()
+    state.optimizer.zero_grad(set_to_none=False)
+    head = forward_head(state.model, cfg, x, state.step, state.generator,
+                        noise)
+    head["batch_share"] = batch_share
+    return head
+
+
+def train_step_tail(cfg: SpairConfig, state: TrainState, head, topk: bool,
+                    gt_bbox=None, gt_count=None, mesh: Optional[Mesh] = None,
+                    retain_graph: bool = False) -> Dict[str, torch.Tensor]:
+    """``train_step`` from the render's branch on (the top-K composite when
+    ``topk``): ``forward_tail``, backward, clipping, Adam and the step
+    count; the metrics. ``retain_graph`` keeps the head's autograd graph
+    for another tail (the first of a segmented step's two captures)."""
+    model, opt = state.model, state.optimizer
+    loss, aux = forward_tail(model, cfg, head, topk, head["batch_share"])
+    loss.backward(retain_graph=retain_graph)
     # a parameter the loss does not reach has a zero gradient, as in JAX:
     # Adam still decays its moments
     grads = []
@@ -180,18 +214,27 @@ def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
 
     On a CUDA device the first call runs one step eagerly and captures one
     step as a CUDA graph; every other step, K a call, is a replay of it,
-    bound to that call's state (``parallel/captured.py``). The step stays
-    eager where ``captured.eager_reason`` gives a reason (the CPU, ``mesh``,
-    ``render_topk``, the NaN hunter), decided at the first call, or when
-    ``eager`` is set: the A/B of the two forms in ``chip_smoke.py`` and the
-    tests."""
+    bound to that call's state (``parallel/captured.py``). With
+    ``render_topk`` (``render.py::topk_branches``) the step is captured as
+    segments around the render's branch, A replayed, the branch read on the
+    host, then the branch's B (``captured.SegmentedStep``). The step stays
+    eager where ``captured.eager_reason`` gives a reason (the CPU,
+    ``mesh``, the NaN hunter), decided at the first call, or when ``eager``
+    is set: the A/B of the two forms in ``chip_smoke.py`` and the tests.
+
+    With ``render_topk`` the returned function's ``branches`` (a
+    ``captured.Branches``) counts the branch each step took, eager or
+    captured; it is None otherwise."""
     if steps_per_call > 1 and datagen is None:
         raise ValueError("steps_per_call > 1 needs datagen")
 
+    # a step is head(state, *batch) -> carry, the predicate, then
+    # tail(state, carry, topk); carry = (train_step_head's, (gt_bbox,
+    # gt_count))
     if datagen is not None:
         dcfg, bank = datagen
 
-        def one_step(state):
+        def head(state):
             if mesh is None:
                 x, gt_bbox, gt_count = generate_batch(
                     state.generator, bank, cfg.batch_size, dcfg)
@@ -199,13 +242,31 @@ def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
                 x, gt_bbox, gt_count = generate_host_local(
                     state.generator, bank, dcfg, cfg.batch_size,
                     mesh.world_size, mesh.rank)
-            return train_step(cfg, state, x, gt_bbox, gt_count, mesh=mesh)
+            return train_step_head(cfg, state, x, mesh=mesh), (gt_bbox,
+                                                               gt_count)
     elif with_detection:
-        def one_step(state, x, gt_bbox, gt_count):
-            return train_step(cfg, state, x, gt_bbox, gt_count, mesh=mesh)
+        def head(state, x, gt_bbox, gt_count):
+            return train_step_head(cfg, state, x, mesh=mesh), (gt_bbox,
+                                                               gt_count)
     else:
-        def one_step(state, x):
-            return train_step(cfg, state, x, mesh=mesh)
+        def head(state, x):
+            return train_step_head(cfg, state, x, mesh=mesh), (None, None)
+
+    def tail(state, carry, topk, retain_graph=False):
+        return train_step_tail(cfg, state, carry[0], topk, *carry[1],
+                               mesh=mesh, retain_graph=retain_graph)
+
+    def predicate(carry):
+        return carry[0]["live_at_most_k"]
+
+    branches = Branches() if topk_branches(cfg) else None
+
+    def one_step(state, *batch):
+        carry = head(state, *batch)
+        topk = takes_topk(predicate(carry))
+        if branches is not None:
+            branches.took(topk)
+        return tail(state, carry, topk)
 
     def eager_steps(state, *batch):
         if steps_per_call == 1:
@@ -220,11 +281,19 @@ def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
         if run is None:
             captured = not eager and eager_reason(
                 cfg, state.step.device, mesh) is None
-            run = (CapturedStep(one_step, steps_per_call) if captured
-                   else eager_steps)
+            if not captured:
+                run = eager_steps
+            elif branches is not None:
+                run = SegmentedStep(head, tail, predicate, steps_per_call,
+                                    branches)
+            else:
+                run = CapturedStep(one_step, steps_per_call)
+        if branches is not None:
+            branches.new_call()
         if batch is None:
             return run(state)
         return run(state, *(batch if with_detection else (batch,)))
+    step_fn.branches = branches
     return step_fn
 
 
@@ -236,14 +305,33 @@ def make_eval_step(cfg: SpairConfig, eager: bool = False):
     graph for each shape of x, with x and the step (a tensor, or a number
     filled into the graph's step before each replay) as static inputs and
     the generator of the first call registered with the graph
-    (``parallel/captured.py``). A call with another generator, or other
-    parameters, raises. It stays eager where ``forward_eager_reason`` gives
-    a reason (the CPU, ``render_topk``, the NaN hunter), decided at the
-    first call, or when ``eager`` is set."""
+    (``parallel/captured.py``); with ``render_topk``, segments around the
+    render's branch (``captured.SegmentedForward``), and the returned
+    function's ``branches`` counts the branch each call took (None
+    otherwise). A call with another generator, or other parameters,
+    raises. It stays eager where ``forward_eager_reason`` gives a reason
+    (the CPU, the NaN hunter), decided at the first call, or when ``eager``
+    is set."""
+    branches = Branches() if topk_branches(cfg) else None
+
+    @torch.no_grad()
+    def head(params, x, step, generator):
+        return forward_head(params, cfg, x, step, generator)
+
+    @torch.no_grad()
+    def tail(params, carry, topk):
+        return forward_tail(params, cfg, carry, topk)
+
+    def predicate(carry):
+        return carry["live_at_most_k"]
 
     def eval_fn(params, x, step, generator):
-        with torch.no_grad():
-            return forward(params, cfg, x, step, generator)
+        carry = head(params, x, step, generator)
+        topk = takes_topk(predicate(carry))
+        if branches is not None:
+            branches.new_call()
+            branches.took(topk)
+        return tail(params, carry, topk)
 
     program = None  # chosen at the first call, from x's device
 
@@ -252,9 +340,14 @@ def make_eval_step(cfg: SpairConfig, eager: bool = False):
         if program is None:
             program = eval_fn
             if not eager and forward_eager_reason(cfg, x.device) is None:
-                program = CapturedForward(
-                    lambda p, x, s: eval_fn(p, x, s, generator),
-                    generator=generator)
+                if branches is not None:
+                    program = SegmentedForward(
+                        lambda p, x, s: head(p, x, s, generator), tail,
+                        predicate, generator=generator, branches=branches)
+                else:
+                    program = CapturedForward(
+                        lambda p, x, s: eval_fn(p, x, s, generator),
+                        generator=generator)
         if program is eval_fn:
             return eval_fn(params, x, step, generator)
         if generator is not program.generator:
@@ -262,4 +355,5 @@ def make_eval_step(cfg: SpairConfig, eager: bool = False):
                                "generator of its first call; build a new "
                                "step with make_eval_step")
         return program(params, x, step)
+    step_fn.branches = branches
     return step_fn

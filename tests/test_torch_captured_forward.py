@@ -14,12 +14,16 @@ under the guard of ``tests/test_torch_captured_step.py``; the device is
 taken for a card's. Its results equal the eager program's bit for bit, and
 the deterministic ones JAX's (f32 relative error 1e-4; masks and counts
 equal, as ``tests/test_torch_serve.py`` states). (c) Which programs stay
-eager, and why: the CPU always, ``render_topk`` for the programs that
-render, the NaN hunter for all.
+eager, and why: the CPU always, the NaN hunter for all; with
+``render_topk`` the programs that render are captured as segments around
+the render's branch (``GuardedSegments`` stands in for
+``captured.SegmentedForward``; ``tests/test_torch_captured_topk.py`` holds
+those segments).
 
 The card's side (captured against eager, binding, a failed capture,
 re-seeding) is in ``tests/test_torch_kernel_gpu.py``."""
 
+import contextlib
 import dataclasses
 import importlib
 import types
@@ -37,7 +41,8 @@ from spair_pytorch_tpu_torch import metrics as tmetrics
 from spair_pytorch_tpu_torch.config import PRESETS
 from spair_pytorch_tpu_torch.models import infer as tinfer
 from spair_pytorch_tpu_torch.models.latents import geometry, noise_shapes
-from spair_pytorch_tpu_torch.models.spair import infer_latents
+from spair_pytorch_tpu_torch.models.render import takes_topk
+from spair_pytorch_tpu_torch.models.spair import forward, infer_latents
 from spair_pytorch_tpu_torch.ops import quant as tq
 from spair_pytorch_tpu_torch.parallel import captured, make_eval_step
 from spair_pytorch_tpu_torch.serve import DetectorServer
@@ -144,19 +149,58 @@ class GuardedProgram:
             return self.program(params, *inputs)
 
 
-def _patch(monkeypatch, program_cls):
-    """Every module that makes a CapturedForward makes ``program_cls``,
-    and the CPU is taken for a card when the choice is made."""
+class GuardedSegments:
+    """``SegmentedForward``'s stand-in on the CPU: the first call of each
+    input shape runs the head, the predicate's read and the tail as the
+    warm-up does; every later call runs the head and the tail where the
+    card replays A and a B, each under the guard, and reads the predicate
+    between them, outside it, once (``reads``)."""
+
+    made = []
+
+    def __init__(self, head, tail, predicate, generator=None, pool=None,
+                 branches=None):
+        self.head, self.tail, self.predicate = head, tail, predicate
+        self.generator = generator
+        self.branches = captured.Branches() if branches is None else branches
+        self.shapes = set()
+        self.guarded = 0
+        self.reads = 0
+        GuardedSegments.made.append(self)
+
+    def __call__(self, params, *inputs):
+        key = tuple(tuple(x.shape) if torch.is_tensor(x) else type(x)
+                    for x in inputs)
+        inputs = tuple(captured.static_input(x, "cpu") for x in inputs)
+        guard = no_host_reads if key in self.shapes else contextlib.nullcontext
+        self.guarded += key in self.shapes
+        self.shapes.add(key)
+        with guard():
+            carry = self.head(params, *inputs)
+        topk = takes_topk(self.predicate(carry))
+        self.reads += 1
+        self.branches.new_call()
+        self.branches.took(topk)
+        with guard():
+            return self.tail(params, carry, topk)
+
+
+def _patch(monkeypatch, program_cls, segments_cls=GuardedSegments):
+    """Every module that makes a CapturedForward makes ``program_cls``
+    (and a SegmentedForward ``segments_cls``), and the CPU is taken for a
+    card when the choice is made."""
     reason = captured.forward_eager_reason
 
-    def as_on_a_card(cfg, device, renders=True):
-        return reason(cfg, "cuda", renders)
+    def as_on_a_card(cfg, device):
+        return reason(cfg, "cuda")
     for module in (captured, ts, teval):
         monkeypatch.setattr(module, "CapturedForward", program_cls)
+        monkeypatch.setattr(module, "SegmentedForward", segments_cls)
         monkeypatch.setattr(module, "forward_eager_reason", as_on_a_card)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
     monkeypatch.setattr(teval, "_CAPTURES", weakref.WeakKeyDictionary())
     GuardedProgram.made = []
+    GuardedSegments.made = []
 
 
 @pytest.fixture
@@ -319,7 +363,7 @@ def parent_evaluate(cfg, state, batches, data, det_threshold, det_nms,
     sums, pooled = None, {t: [] for t in teval.AP_THRESHOLDS}
     for _ in range(batches):
         x, gt_bbox, gt_count = next(data)
-        _, aux = teval.forward(state.model, cfg, x, state.step, gen)
+        _, aux = forward(state.model, cfg, x, state.step, gen)
         zw, zp = aux["z_where"], aux["z_pres"]
         for t in teval.AP_THRESHOLDS:
             pooled[t].append(tmetrics.match_predictions(
@@ -420,19 +464,18 @@ def test_the_server_captures_every_bucket_at_warmup(as_captured, tiny):
 # ---------------------------------------------------- what stays eager
 
 def test_what_stays_eager():
+    """The CPU and the NaN hunter keep every program eager; every preset's
+    programs are captured on a card, the render_topk presets' too."""
     cuda = torch.device("cuda")
     reason = captured.forward_eager_reason
-    for preset in ("paper128", "small48", "tpu_throughput"):
+    for preset in ("paper128", "small48", "tpu_throughput",
+                   "cluttered_fine", "quality"):
         assert reason(PRESETS[preset](), cuda) is None
     assert "CUDA device" in reason(CFG, "cpu")
-    assert "CUDA device" in reason(CFG, "cpu", renders=False)
-    for preset in ("cluttered_fine", "quality"):
-        assert "render_topk" in reason(PRESETS[preset](), cuda)
-        assert reason(PRESETS[preset](), cuda, renders=False) is None
     try:
         debug.enable_nan_hunter(True)
         assert "NaN hunter" in reason(CFG, cuda)
-        assert "NaN hunter" in reason(CFG, cuda, renders=False)
+        assert "NaN hunter" in reason(PRESETS["quality"](), cuda)
     finally:
         debug.enable_nan_hunter(False)
 
@@ -451,15 +494,18 @@ def run_every_program(cfg, model, x):
 def test_the_cpu_never_captures_a_forward_program(monkeypatch, tiny):
     for module in (captured, ts, teval):
         monkeypatch.setattr(module, "CapturedForward", refuse)
+        monkeypatch.setattr(module, "SegmentedForward", refuse)
     _, model, x = tiny
     run_every_program(CFG, model, x)
+    run_every_program(dataclasses.replace(CFG, render_topk=4), model, x)
 
 
 @pytest.mark.parametrize("option", ["render_topk", "nan_hunter"])
 def test_what_stays_eager_stays_eager(monkeypatch, tiny, option):
-    """As on a card: with render_topk the programs that render stay eager
-    and the detector is captured; with the NaN hunter every program stays
-    eager."""
+    """As on a card: with render_topk every program is captured, the eval
+    step and evaluate's batch program as segments around the render's
+    branch, the detector and calibrate's programs (which do not render) as
+    one graph each; with the NaN hunter every program stays eager."""
     _, model, x = tiny
     _patch(monkeypatch, GuardedProgram)
     made = []
@@ -473,13 +519,15 @@ def test_what_stays_eager_stays_eager(monkeypatch, tiny, option):
     if option == "render_topk":
         cfg = dataclasses.replace(CFG, render_topk=4, pres_gate_threshold=0.01)
         run_every_program(cfg, model, x)
-        # the detector, and calibrate's four NMS settings: no eval step,
-        # no evaluate
+        # the detector, and calibrate's four NMS settings, one graph each;
+        # the eval step and evaluate, segments
         assert len(made) == 1 + len(teval.CALIB_NMS)
+        assert len(GuardedSegments.made) == 2
+        assert all(p.reads == 1 for p in GuardedSegments.made)
     else:
         try:
             debug.enable_nan_hunter(True)
             run_every_program(cfg, model, x)
         finally:
             debug.enable_nan_hunter(False)
-        assert not made
+        assert not made and not GuardedSegments.made

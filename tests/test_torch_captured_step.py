@@ -9,7 +9,9 @@ of a list or a number, ``torch.from_numpy``, ...) refused and with the ops
 whose output shape depends on the data refused. On the CPU the optimizer
 is not capturable and reads its step count with ``.item()``: those count
 tensors alone are exempt (on CUDA ``optimizer()`` keeps them on the device).
-(b) Which configurations stay eager, and why. (c) The CPU step is the
+(b) Which configurations stay eager, and why: ``render_topk`` no longer
+among them (its segments are held in ``tests/test_torch_captured_topk.py``).
+(c) The CPU step is the
 parent commit's eager step, bit for bit: ``make_train_step`` against a
 loop of ``train_step`` with the parent's Adam.
 
@@ -28,6 +30,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from spair_pytorch_tpu_torch.config import PRESETS
 from spair_pytorch_tpu_torch.data import (DataConfig, generate_batch,
                                           glyph_bank)
+from spair_pytorch_tpu_torch.models.render import topk_branches
 from spair_pytorch_tpu_torch.parallel import (TrainState, create_train_state,
                                               make_train_step, train_step)
 from spair_pytorch_tpu_torch.parallel.captured import eager_reason
@@ -196,7 +199,11 @@ def test_what_stays_eager():
     mesh = Mesh(world_size=1, rank=0, device=cuda, owns_group=False)
     assert "mesh" in eager_reason(MAIN, cuda, mesh)
     for preset in ("cluttered_fine", "quality"):
-        assert "render_topk" in eager_reason(PRESETS[preset](), cuda)
+        # captured as segments around the render's top-K branch
+        assert eager_reason(PRESETS[preset](), cuda) is None
+        assert topk_branches(PRESETS[preset]())
+    assert not topk_branches(MAIN) and not topk_branches(PRESETS["quality"](
+        render_topk=0))
     try:
         debug.enable_nan_hunter(True)
         assert "NaN hunter" in eager_reason(MAIN, cuda)

@@ -9,6 +9,8 @@ Tolerances, as relative error max |kernel - plain| / max |plain|: forward
 backward 1e-3 and 6e-2 (bench.py's gradient bars). TF32 is off, so the
 plain versions compute in full f32."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1117,6 +1119,157 @@ def test_captured_evaluate_and_calibrate_equal_eager(cuda):
         cfg, state, 2, digits="font", eager=True)
 
 
+# render_topk captured as segments around the render's branch (parallel/
+# captured.py::SegmentedStep, SegmentedForward): cluttered_fine (reference
+# mode, K1/K2) and quality (ordered mode, plain torch) at their widths (16x16
+# grid, 46 fronts, K = 32), b8. The cold state is dense and takes the full
+# composite; the presence head's bias shifted by SPARSE_BIAS leaves ~8 of
+# 256 objects live an image and takes the top-K one.
+SPARSE_BIAS = -8.0
+TOPK_PRESETS = {"reference": "cluttered_fine", "ordered": "quality"}
+
+
+def topk_preset(mode, **kw):
+    """(config, datagen) of the render_topk preset of ``mode`` at b8."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.data import DataConfig, glyph_bank
+
+    cfg = PRESETS[TOPK_PRESETS[mode]](batch_size=8, **kw)
+    bank = torch.as_tensor(glyph_bank((14, 14)), device="cuda")
+    return cfg, (DataConfig(image_hw=cfg.image_shape[1:],
+                            min_objects=cfg.min_scene_objects,
+                            max_objects=cfg.max_scene_objects), bank)
+
+
+def shifted_state(cfg, bias):
+    """A fresh state with the presence head's output bias shifted in
+    place."""
+    from spair_pytorch_tpu_torch.parallel import create_train_state
+
+    state = create_train_state(cfg, device="cuda")
+    with torch.no_grad():
+        state.model.obj_network.out.bias += bias
+    return state
+
+
+def topk_run(cfg, datagen, eager, bias, calls):
+    """Calls of ``make_train_step`` (K steps each, one step function per
+    K) from a fresh state: (state, each call's metrics, each call's
+    branches, K1-K4 launches of the last call)."""
+    from spair_pytorch_tpu_torch.parallel import make_train_step
+
+    state = shifted_state(cfg, bias)
+    fns = {k: make_train_step(cfg, datagen=datagen, steps_per_call=k,
+                              eager=eager) for k in sorted(set(calls))}
+    metrics, branches = [], []
+    for k in calls:
+        before = [fn.launches for fn in counted()]
+        metrics.append(fns[k](state)[1])
+        branches.append(list(fns[k].branches.last))
+    torch.cuda.synchronize()
+    return state, metrics, branches, [fn.launches - n for fn, n in
+                                      zip(counted(), before)]
+
+
+def assert_same_runs(captured, eager):
+    (c, mc, bc, _), (e, me, be, _) = captured, eager
+    assert bc == be
+    for got, want in zip(mc, me):
+        assert list(got) == list(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    for got, want in zip(state_tensors(c), state_tensors(e)):
+        assert torch.equal(got, want)
+    assert torch.equal(c.generator.get_state(), e.generator.get_state())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("branch", ["topk", "full"])
+@pytest.mark.parametrize("mode", sorted(TOPK_PRESETS))
+def test_captured_topk_step_equals_eager(deterministic, mode, branch):
+    """Calls of 1, 1 and 3 steps, captured (segments A and two Bs, one
+    predicate read a step) against eager from the same state: every metric,
+    parameter, Adam tensor, the step and the generator bit for bit, every
+    step in the branch the state's presence names; K1/K2 launched once a
+    step in reference mode (counted over the replays), never in ordered
+    mode."""
+    cfg, datagen = topk_preset(mode)
+    bias = SPARSE_BIAS if branch == "topk" else 0.0
+    runs = {eager: topk_run(cfg, datagen, eager, bias, (1, 1, 3))
+            for eager in (True, False)}
+    assert runs[True][2] == [[branch == "topk"]] * 2 + [
+        [branch == "topk"] * 3]
+    assert_same_runs(runs[False], runs[True])
+    want = [3, 3, 0, 0] if mode == "reference" else [0, 0, 0, 0]
+    assert runs[False][3] == runs[True][3] == want
+    assert int(runs[False][0].step) == 5
+
+
+@pytest.mark.gpu
+def test_captured_topk_step_switches_branch_inside_a_call(deterministic,
+                                                          monkeypatch):
+    """K chosen from an eager probe of the largest live count of each step,
+    so that the replays of one call of 6 steps take both branches: captured
+    against eager, the branch sequences equal, every tensor bit for bit."""
+    from spair_pytorch_tpu_torch.models import spair
+    from spair_pytorch_tpu_torch.parallel import make_train_step
+
+    cfg, datagen = topk_preset("reference")
+    bias, seen = -7.0, []
+    real = spair.render_objects
+
+    def spy(*a, **kw):
+        objects, pred = real(*a, **kw)
+        seen.append(int((objects["gate"] > 0).sum(1).max()))
+        return objects, pred
+    monkeypatch.setattr(spair, "render_objects", spy)
+    make_train_step(cfg, datagen=datagen, steps_per_call=6,
+                    eager=True)(shifted_state(cfg, bias))
+    monkeypatch.setattr(spair, "render_objects", real)
+    k = sorted(seen[1:])[1]
+    assert 0 < k < max(seen[1:]), seen
+    cfg = dataclasses.replace(cfg, render_topk=k)
+    runs = {eager: topk_run(cfg, datagen, eager, bias, (6, 6))
+            for eager in (True, False)}
+    assert_same_runs(runs[False], runs[True])
+    replayed = runs[False][2][0][1:]
+    assert True in replayed and False in replayed, (seen, k, runs[False][2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(TOPK_PRESETS))
+def test_captured_topk_eval_step_and_evaluate_equal_eager(deterministic,
+                                                           mode):
+    """The eval step (3 calls) and evaluate (2 batches) of the dense and
+    the sparse state, captured as segments against eager: loss, aux and
+    results equal bit for bit, each in its branch."""
+    from spair_pytorch_tpu_torch.data import generate_batch
+    from spair_pytorch_tpu_torch.eval import _CAPTURES, evaluate
+    from spair_pytorch_tpu_torch.parallel import make_eval_step
+
+    cfg, (dcfg, bank) = topk_preset(mode)
+    x = generate_batch(torch.Generator(device="cuda").manual_seed(3), bank,
+                       8, dcfg)[0]
+    for bias, topk in ((0.0, False), (SPARSE_BIAS, True)):
+        state = shifted_state(cfg, bias)
+        runs = {}
+        for eager in (True, False):
+            step = make_eval_step(cfg, eager=eager)
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            runs[eager] = [step(state.model, x, 1500, gen) for _ in range(3)]
+            assert step.branches.counts == {"topk": 3 * topk,
+                                            "full": 3 * (not topk)}
+        for (lc, ac), (le, ae) in zip(runs[False], runs[True]):
+            assert torch.equal(lc, le)
+            for k in ("recon", "z_where", "z_pres", "z_attr"):
+                assert torch.equal(ac[k], ae[k]), k
+        got = evaluate(cfg, state, 2, digits="font")[0]
+        assert got == evaluate(cfg, state, 2, digits="font", eager=True)[0]
+        (program,) = _CAPTURES[state.model]["programs"].values()
+        assert program.branches.counts == {"topk": 2 * topk,
+                                           "full": 2 * (not topk)}
+
+
 @pytest.mark.gpu
 def test_a_host_read_in_the_step_makes_the_capture_raise(cuda, monkeypatch):
     """A host read injected into the step: the warm-up step runs it
@@ -1167,3 +1320,42 @@ def test_a_host_read_in_the_detector_makes_its_capture_raise(cuda,
     torch.cuda.synchronize()
     with pytest.raises(RuntimeError, match="capture failed"):
         detect(params, x)
+
+
+@pytest.mark.gpu
+def test_a_host_read_in_a_topk_tail_makes_its_capture_raise(cuda,
+                                                            monkeypatch):
+    """A host read injected into segment B of a render_topk step: the
+    warm-up step runs it eagerly, A is captured, the first B's capture
+    raises, no step runs eagerly in its place, and the next call raises
+    without running. Last in the file: it leaves a failed capture behind."""
+    import importlib
+
+    from spair_pytorch_tpu_torch.parallel import make_train_step
+
+    ts = importlib.import_module("spair_pytorch_tpu_torch.parallel."
+                                 "train_step")
+    calls = {"head": 0, "tail": 0}
+    real_head, real_tail = ts.train_step_head, ts.train_step_tail
+
+    def head(*a, **kw):
+        calls["head"] += 1
+        return real_head(*a, **kw)
+
+    def tail(*a, **kw):
+        calls["tail"] += 1
+        out = real_tail(*a, **kw)
+        return {k: v * (v.sum().item() > -1e30) for k, v in out.items()}
+    monkeypatch.setattr(ts, "train_step_head", head)
+    monkeypatch.setattr(ts, "train_step_tail", tail)
+    cfg, datagen = topk_preset("reference")
+    state = shifted_state(cfg, SPARSE_BIAS)
+    step = make_train_step(cfg, datagen=datagen, steps_per_call=3)
+    with pytest.raises(RuntimeError) as err:
+        step(state)
+    torch.cuda.synchronize()
+    assert int(state.step) == 1
+    assert calls == {"head": 2, "tail": 2}, str(err.value)[:400]
+    with pytest.raises(RuntimeError, match="capture failed"):
+        step(state)
+    assert int(state.step) == 1 and calls == {"head": 2, "tail": 2}

@@ -256,6 +256,52 @@ def test_render_topk_exact_when_sparse(mode, over):
         assert_close(g, w, rel=GRAD_REL)
 
 
+TIED = np.full(16, 0.001)
+TIED[[2, 7, 11, 13]] = 1.0  # 4 live objects at presence saturated to 1
+
+
+def _tied_case(mode, **over):
+    """TIED's presence on JAX's crafted top-K latents, every object on one
+    box and at one depth: the top-K gather's order among the tied live
+    objects is the compositing order of ordered mode."""
+    base, pnp, model, zs = _render_case(TIED, mode, **over)
+    zs[1] = np.broadcast_to(np.asarray([0.5, 0.5, 0.45, 0.45], "f"),
+                            zs[1].shape).copy()
+    zs[2] = np.full_like(zs[2], 2.0)
+    return base, pnp, model, zs
+
+
+@pytest.mark.parametrize("mode,over", MODES[:2], ids=MODE_IDS[:2])
+def test_render_topk_ties_take_jax_order(mode, over):
+    """4 live objects at presence exactly 1.0, on one box at one depth,
+    K=8: the top-K render equals the JAX package's, values and gradients
+    against z_attr and z_where (1e-4, 1e-3). ``jax.lax.top_k`` puts tied
+    scores in index order; ordered mode composites the gathered objects at
+    equal depth in that order, so another order changes the image. In
+    reference mode the order reorders only K1's sums."""
+    base, pnp, model, zs = _tied_case(mode, **over)
+    topk = dataclasses.replace(base, render_topk=8)
+    jcfg = topk if mode == "ordered" else dataclasses.replace(
+        topk, render_backend="pallas")
+    got, grads = _port_run(topk, model, zs)
+    want, jgrads = _jax_run(jcfg, pnp, zs)
+    assert_close(got, want)
+    for g, w in zip(grads, jgrads):
+        assert_close(g, w, rel=GRAD_REL)
+
+
+def test_top_k_gathers_ties_in_index_order():
+    """The gather itself: tied scores in index order, as jax.lax.top_k
+    returns them."""
+    scores = t(np.stack([TIED, TIED[::-1]]).astype("f"))
+    idx = np.asarray(jax.lax.top_k(jnp.asarray(scores.numpy()), 8)[1])
+    take = importlib.import_module(
+        "spair_pytorch_tpu_torch.models.render")._top_k(scores, 8)
+    got = take(torch.arange(16).expand(2, 16)[..., None])[..., 0]
+    np.testing.assert_array_equal(got.numpy(), idx)
+    np.testing.assert_array_equal(got[0, :4].numpy(), [2, 7, 11, 13])
+
+
 @pytest.mark.parametrize("mode,over", MODES[:2], ids=MODE_IDS[:2])
 def test_render_topk_falls_back_when_dense(mode, over):
     """16 live objects, K=8: the full grid runs, and the result equals
