@@ -9,8 +9,9 @@ the figure path, the benchmark entry point, the train step captured as a
 CUDA graph against the eager step, the forward programs (detector,
 eval step, evaluate, calibrate) captured against eager, and the render_topk
 presets' train step, eval step and evaluate captured as segments around the
-render's top-K branch against eager, on one CUDA card, with random weights
-from the preset's seed:
+render's top-K branch against eager, and the data-parallel step and the
+split refiner captured against eager, on one CUDA card, with random
+weights from the preset's seed:
 
   1. device     the card's name and power limit (nvidia-smi);
   2. build      compiles csrc/composite_fwd.cu (K1, and K3 as its banded
@@ -198,14 +199,38 @@ from the preset's seed:
                 and the reserved memory it adds; (d) the eval step (3
                 calls) and evaluate(batches=4) captured against eager in
                 each branch, with their times. Run before the failed-capture
-                checks of 17(j) and 18(d).
+                checks of 20(c), 17(j) and 18(d).
+ 20. mesh and refiner
+                the last two programs that ran eagerly, captured: (a) NCCL
+                inside a capture in the default 'global' mode (a fresh
+                group's first collective captured, then torch's own
+                watchdog check: 10 captures of three all-reduces, each
+                after 30 eager ones, replayed 200 times each); the
+                data-parallel step at world size 1 over NCCL, captured,
+                against the eager mesh step and the captured plain step
+                under deterministic kernels: the main path b128 through
+                'auto' and 'pallas_v3' (every metric, the step,
+                parameters, Adam's state and the generator bit for bit,
+                K1-K4 launches over replays) and cluttered_fine b32
+                segmented, a call in each branch (both branch sequences,
+                every tensor bit for bit); eager mesh, captured mesh and
+                captured plain ms/step in turns with their first calls;
+                (b) make_refiner captured, one graph per batch size, at
+                B=32 and B=128 after the captured detector (NMS 0.5, top_m
+                12, 32 px windows) against eager: every output bit for bit
+                at margin 0, +inf and -inf (max_neighbor_iou 1), floats
+                and 0-d tensors through one graph, K1's launches a replay,
+                the first call, ms/call in turns beside the detector; (c)
+                last, before 17(j): a .item() injected into the mesh step
+                makes its capture raise, and nothing runs eagerly in its
+                place.
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
 cuDNN convs in full f32), so kernels and plain versions are compared on the
 same arithmetic. The last two lines are a JSON summary of the kernels and
 the result line {"ok": true, "device": {...}}. A kernel's "launches" there
 are its own path's, K1/K2 from phase 9 and K3/K4 from phase 12, and its
-"path_launches" those of phase 15's to phase 19's paths, each read from
+"path_launches" those of phase 15's to phase 20's paths, each read from
 its own run. Launches of a captured step or program are counted over its
 replays.
 
@@ -1976,16 +2001,20 @@ def bench_phase(card):
 CAPTURED_K = 5   # the A/B's call of K steps
 
 
-def run_steps(cfg, datagen, eager, dev):
+def run_steps(cfg, datagen, eager, dev, mesh=None):
     """5 calls of one step, then a call of CAPTURED_K steps after that
-    step's first call, from a fresh state: (state, the 6 calls' metrics,
-    K1-K4 launches of the last call)."""
+    step's first call, from a fresh state (``replicate``d over ``mesh``,
+    the data-parallel step's world, when given): (state, the 6 calls'
+    metrics, K1-K4 launches of the last call)."""
     from spair_pytorch_tpu_torch.parallel import (create_train_state,
                                                   make_train_step)
+    from spair_pytorch_tpu_torch.parallel.mesh import replicate
     state = create_train_state(cfg, device=dev)
-    one = make_train_step(cfg, datagen=datagen, eager=eager)
-    many = make_train_step(cfg, datagen=datagen, steps_per_call=CAPTURED_K,
-                           eager=eager)
+    if mesh is not None:
+        state = replicate(mesh, state)
+    one = make_train_step(cfg, mesh, datagen=datagen, eager=eager)
+    many = make_train_step(cfg, mesh, datagen=datagen,
+                           steps_per_call=CAPTURED_K, eager=eager)
     metrics = [one(state)[1] for _ in range(5)]
     many(state)
     before = [fn.launches for fn in counted_kernels()]
@@ -2883,17 +2912,347 @@ def topk_phase(K, card, dev):
     return launches, rows
 
 
+# phase 20: the last two eager programs captured: the data-parallel step
+# (world size 1 over NCCL, its collectives inside the graph) and the split
+# refiner (one graph per batch size)
+MESH_PROBES = 10  # captures in torch's own check of the NCCL watchdog
+
+
+def nccl_capture_probe(dev):
+    """Phase 20(a), first: NCCL inside a capture in torch's default
+    'global' capture-error mode, on a fresh group. (1) The group's first
+    collective inside a capture: it needs the communicator made at init
+    (``make_mesh``'s ``device_id``), as a communicator made inside a
+    capture fails it. (2) torch's own check of ProcessGroupNCCL's watchdog
+    thread against a capture on the main thread (its
+    ``test_nccl_watchdog_cudagraph``): MESH_PROBES captures of three
+    all-reduces, each after 30 eager ones that the watchdog polls, each
+    graph replayed 200 times. Returns the seconds it took."""
+    import torch.distributed as dist
+
+    from spair_pytorch_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    world = make_mesh(dev)
+    try:
+        x = torch.ones(1, device=dev)
+        stream = torch.cuda.Stream(dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            dist.all_reduce(x)
+        graph.replay()
+        for _ in range(MESH_PROBES):
+            for _ in range(30):
+                dist.all_reduce(x)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                x += 0.0
+                for _ in range(3):
+                    dist.all_reduce(x)
+                x += 0.0
+            for _ in range(200):
+                graph.replay()
+        torch.cuda.synchronize()
+        if float(x) != 1.0:
+            raise AssertionError(f"world-of-one all-reduces gave {float(x)}")
+    finally:
+        world.close()
+    return time.perf_counter() - t0
+
+
+def topk_mesh_run(cfg, datagen, eager, dev, mesh=None):
+    """cluttered_fine's segmented step (``mesh``'s data-parallel step when
+    given): a call of TOPK_STEPS steps from the cold, dense state, the
+    presence bias shifted in place, a call on the sparse state. Returns
+    (per call: its branches and state snapshot; the generator's state;
+    K1-K4 launches of the two calls)."""
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+    from spair_pytorch_tpu_torch.parallel.mesh import replicate
+    state = create_train_state(cfg, device=dev)
+    if mesh is not None:
+        state = replicate(mesh, state)
+    fn = make_train_step(cfg, mesh, datagen=datagen,
+                         steps_per_call=TOPK_STEPS, eager=eager)
+    for w in counted_kernels():
+        w.launches = 0
+    calls = []
+    for sparse in (False, True):
+        if sparse:
+            shift_presence_(state.model, TOPK_SPARSE_BIAS)
+        m = fn(state)[1]
+        calls.append((list(fn.branches.last), state_snapshot(state, m)))
+    torch.cuda.synchronize()
+    return (calls, state.generator.get_state(),
+            [w.launches for w in counted_kernels()])
+
+
+def first_and_steady_ms(cfg, datagen, dev, mesh, eager):
+    """(the first call's host seconds, then ms/step by CUDA events over one
+    call of STEPS_PER_CALL steps) of a fresh main-path step."""
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+    from spair_pytorch_tpu_torch.parallel.mesh import replicate
+    state = create_train_state(cfg, device=dev)
+    if mesh is not None:
+        state = replicate(mesh, state)
+    step = make_train_step(cfg, mesh, datagen=datagen,
+                           steps_per_call=STEPS_PER_CALL, eager=eager)
+    _, first = host_timed(lambda: step(state))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    step(state)
+    end.record()
+    torch.cuda.synchronize()
+    return first, start.elapsed_time(end) / STEPS_PER_CALL
+
+
+def mesh_capture_phase(card, dev):
+    """Phase 20(a): the data-parallel step at world size 1 over NCCL,
+    captured, against the eager mesh step and the captured plain step, bit
+    for bit under deterministic kernels: the main path through 'auto' and
+    'pallas_v3', and cluttered_fine b32 segmented in both branches; ms/step
+    in turns; the first call. Returns the K1-K4 launches of each captured
+    mesh run, counted over its replays."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.data import glyph_bank
+    from spair_pytorch_tpu_torch.parallel.mesh import make_mesh
+    from spair_pytorch_tpu_torch.train import data_config
+
+    probe_s = nccl_capture_probe(dev)
+    phase("mesh-captured", f"NCCL in captures, torch's default 'global' "
+                           f"capture-error mode: a fresh group's first "
+                           f"collective captured and replayed; "
+                           f"{MESH_PROBES} captures of 3 all-reduces, each "
+                           f"after 30 eager ones the watchdog polls, 200 "
+                           f"replays each: none failed ({probe_s:.2f} s)")
+    cfg = main_path_config()
+    bank = torch.as_tensor(glyph_bank((14, 14)), device=dev)
+    datagen = (data_config(cfg), bank)
+    launches = {}
+    world = make_mesh(dev)
+    try:
+        for backend in ("auto", "pallas_v3"):
+            c = dataclasses.replace(cfg, render_backend=backend)
+            with Deterministic():
+                runs = {"mesh eager": run_steps(c, datagen, True, dev, world),
+                        "mesh captured": run_steps(c, datagen, False, dev,
+                                                   world),
+                        "plain captured": run_steps(c, datagen, False, dev)}
+            got = runs["mesh captured"]
+            want = ([CAPTURED_K] * 2 + [0, 0] if backend == "auto"
+                    else [0, 0] + [CAPTURED_K] * 2)
+            for other in ("mesh eager", "plain captured"):
+                equal, total, diff, gen = same_run(got, runs[other])
+                phase("mesh-captured", f"{backend} b{TRAIN_B}: captured mesh "
+                                       f"step (world 1, NCCL) against the "
+                                       f"{other} step, 5 calls of 1 step and"
+                                       f" 1 of {CAPTURED_K} (deterministic "
+                                       f"kernels): {equal} of {total} "
+                                       f"tensors equal bit for bit, max "
+                                       f"|diff| {diff:.3e}; generators "
+                                       f"equal: {gen}")
+                if equal != total or not gen:
+                    raise AssertionError(f"{backend}: the captured mesh step"
+                                         f" differs from the {other} step")
+            phase("mesh-captured", f"{backend}: launches K1-K4 of the "
+                                   f"captured mesh call of {CAPTURED_K} "
+                                   f"steps {got[2]}, counted over replays "
+                                   f"(eager mesh {runs['mesh eager'][2]}, "
+                                   f"expected {want})")
+            if got[2] != want or runs["mesh eager"][2] != want:
+                raise AssertionError(f"{backend}: mesh launches {got[2]}")
+            launches[f"mesh_{backend}"] = got[2]
+            del runs, got
+
+        # cluttered_fine b32, segmented: the global predicate's MAX
+        # all-reduce in segment A, NCCL's gradient all-reduce and metrics
+        # all-gather in each B
+        fine = PRESETS["cluttered_fine"]()
+        fdcfg = data_config(fine)
+        fgen = (fdcfg, torch.as_tensor(glyph_bank(fdcfg.patch_hw),
+                                       device=dev))
+        with Deterministic():
+            runs = {"mesh eager": topk_mesh_run(fine, fgen, True, dev, world),
+                    "mesh captured": topk_mesh_run(fine, fgen, False, dev,
+                                                   world),
+                    "plain captured": topk_mesh_run(fine, fgen, False, dev)}
+        got = runs["mesh captured"]
+        branches = [b for b, _ in got[0]]
+        if branches != [[False] * TOPK_STEPS, [True] * TOPK_STEPS]:
+            raise AssertionError(f"cluttered_fine mesh branches {branches}")
+        for other in ("mesh eager", "plain captured"):
+            run = runs[other]
+            pairs = [(x, y) for (_, a), (_, b) in zip(got[0], run[0])
+                     for x, y in zip(a, b)]
+            equal = sum(torch.equal(x, y) for x, y in pairs)
+            same = ([b for b, _ in run[0]] == branches
+                    and torch.equal(got[1], run[1]))
+            phase("mesh-captured", f"cluttered_fine b{fine.batch_size} "
+                                   f"segmented, captured mesh step against "
+                                   f"the {other} step, a call of "
+                                   f"{TOPK_STEPS} steps in each branch "
+                                   f"(deterministic kernels): branches "
+                                   f"{branches} in both: {same}; {equal} of "
+                                   f"{len(pairs)} tensors equal bit for bit;"
+                                   f" launches K1-K4 {got[2]} ({other} "
+                                   f"{run[2]})")
+            if equal != len(pairs) or not same or got[2] != run[2]:
+                raise AssertionError(f"cluttered_fine: the captured mesh "
+                                     f"step differs from the {other} step")
+        launches["mesh_cluttered_fine"] = got[2]
+        del runs, got
+
+        # ms/step in turns, the first call of each arm
+        arms = ("mesh eager", "mesh captured", "plain captured",
+                "plain captured", "mesh captured", "mesh eager")
+        times = {a: [] for a in arms}
+        for arm in arms:
+            first, ms = first_and_steady_ms(
+                cfg, datagen, dev, world if arm.startswith("mesh") else None,
+                arm.endswith("eager"))
+            times[arm].append((first, ms))
+        rows = "; ".join(
+            f"{a} " + ", ".join(f"{ms:.3f}" for _, ms in times[a])
+            + " ms/step (first call "
+            + ", ".join(f"{f:.3f}" for f, _ in times[a]) + " s)"
+            for a in arms[:3])
+        ea, ca, pa = (sum(ms for _, ms in times[a]) / 2 for a in arms[:3])
+        phase("mesh-captured", f"main path b{TRAIN_B} 'auto', in turns "
+                               f"({', '.join(arms)}; CUDA events over a "
+                               f"call of {STEPS_PER_CALL} after the first, "
+                               f"whose host time is given): {rows}; "
+                               f"captured mesh {ea / ca:.2f}x the eager "
+                               f"mesh step, {ca / pa:.3f}x the captured "
+                               f"plain step's time; {TRAIN_B / ca * 1e3:.1f}"
+                               f" img/s ({card})")
+    finally:
+        world.close()
+    return launches
+
+
+class CaptureCount:
+    """While active, counts the captures ``parallel/captured.py`` makes."""
+
+    def __enter__(self):
+        from spair_pytorch_tpu_torch.parallel import captured
+        self.captured, self.real = captured, captured._capture
+        self.n = 0
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self.real(*a, **kw)
+        captured._capture = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.captured._capture = self.real
+
+
+def refine_capture_phase(K, card, dev):
+    """Phase 20(b): ``make_refiner`` captured (one graph per batch size)
+    against eager at B=32 and B=128 after the captured detector (NMS 0.5,
+    top_m 12, 32 px windows): every output bit for bit at margin 0, +inf
+    and -inf (with max_neighbor_iou 1), the numbers as floats and as 0-d
+    tensors through one graph; K1's launches a replay; ms/call in turns
+    beside the captured detector; the first call. Returns K1-K4 launches of
+    one replay at each batch."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.data import generate_batch, glyph_bank
+    from spair_pytorch_tpu_torch.models import init_params, refine
+    from spair_pytorch_tpu_torch.models.infer import make_detector
+    from spair_pytorch_tpu_torch.train import data_config
+
+    cfg = PRESETS["paper128"]()
+    params = init_params(cfg, device=dev)
+    dcfg = data_config(cfg)
+    bank = torch.as_tensor(glyph_bank(dcfg.patch_hw), device=dev)
+    detect = make_detector(cfg, nms_iou=0.5)
+    knobs = dict(top_m=REFINE_M, window_px=REFINE_WIN)
+    launches = {}
+    for b in (32, 128):
+        x = generate_batch(torch.Generator(device=dev).manual_seed(200 + b),
+                           bank, b, dcfg)[0]
+        det = detect(params, x)
+        eager = refine.make_refiner(cfg, eager=True, **knobs)
+        opened_e = refine.make_refiner(cfg, max_neighbor_iou=1.0,
+                                       eager=True, **knobs)
+        with CaptureCount() as made:
+            captured = refine.make_refiner(cfg, **knobs)
+            opened = refine.make_refiner(cfg, max_neighbor_iou=1.0, **knobs)
+            first_out, first = host_timed(
+                lambda: captured(params, x, det, 0.0, 0.5))
+            for w in counted_kernels():
+                w.launches = 0
+            got = captured(params, x, det, 0.0, 0.5)
+            torch.cuda.synchronize()
+            launches[f"refine_captured_b{b}"] = [
+                w.launches for w in counted_kernels()]
+            as_tensors = captured(params, x, det,
+                                  torch.zeros((), device=dev),
+                                  torch.full((), 0.5, device=dev))
+            inf = captured(params, x, det, math.inf, 0.5)
+            opened(params, x, det, -math.inf, 0.5)
+            neg = opened(params, x, det, -math.inf, 0.5)
+        want = eager(params, x, det, 0.0, 0.5)
+        arms = {"margin 0": (got, want), "first call": (first_out, want),
+                "0-d tensors": (as_tensors, want),
+                "margin +inf": (inf, eager(params, x, det, math.inf, 0.5)),
+                "margin -inf, max_neighbor_iou 1": (
+                    neg, opened_e(params, x, det, -math.inf, 0.5))}
+        results = {k: same_tree(a, w) for k, (a, w) in arms.items()}
+        n = det["scores"].shape[1]
+        live = torch.sum(det["scores"] >= 0.5, dim=-1)
+        live_m = torch.sum(refine._stable_top_k(det["scores"], REFINE_M)[0]
+                           >= 0.5, dim=-1)
+        bounds = (torch.equal(inf["boxes"][:, :n], det["boxes"])
+                  and torch.equal(inf["count"], det["count"])
+                  and int(inf["n_split"].sum()) == 0
+                  and torch.equal(neg["count"], live + live_m)
+                  and torch.equal(neg["n_split"], live_m))
+        phase("refine-captured", f"B={b}: captured against eager, outputs "
+                                 f"equal bit for bit of 4: "
+                                 f"{ {k: v[0] for k, v in results.items()} }"
+                                 f"; {made.n} captures for the two refiners"
+                                 f" (floats, 0-d tensors and infinities "
+                                 f"through one graph each); margin +inf "
+                                 f"leaves the detections, -inf splits the "
+                                 f"{int(live_m.sum())} live of the top "
+                                 f"{REFINE_M}: {bounds}; launches K1-K4 of "
+                                 f"a replay {launches[f'refine_captured_b{b}']}"
+                                 f"; the first call (eager run and capture) "
+                                 f"{first:.3f} s ({card})")
+        if any(e != t for e, t in results.values()) or made.n != 2 \
+                or not bounds or launches[f"refine_captured_b{b}"] != [
+                    2, 0, 0, 0]:
+            raise AssertionError(f"refine B={b}: the captured refiner "
+                                 f"differs from eager")
+        fns = {"detector": lambda: detect(params, x),
+               "eager refiner": lambda: eager(params, x, det, 0.0, 0.5),
+               "captured refiner": lambda: captured(params, x, det, 0.0,
+                                                    0.5)}
+        t = {k: [] for k in fns}
+        for k in ("detector", "eager refiner", "captured refiner",
+                  "captured refiner", "eager refiner", "detector"):
+            t[k].append(cuda_ms(fns[k], 3 if k == "eager refiner" else 10))
+        phase("refine-captured", f"B={b}, in turns (CUDA events): " + "; ".join(
+            f"{k} {', '.join(f'{v:.3f}' for v in t[k])} ms/call"
+            for k in fns) + f" ({card})")
+    return launches
+
+
 def failed_capture_phase(dev):
-    """Phases 17(j) and 18(d), last in the run since each leaves a failed
-    capture behind: a host read injected into the captured train step and
-    into the captured detector makes each capture raise, and nothing runs
-    eagerly in its place."""
+    """Phases 20(c), 17(j) and 18(d), last in the run since each leaves a
+    failed capture behind: a host read injected into the captured mesh
+    step, the captured train step and the captured detector makes each
+    capture raise, and nothing runs eagerly in its place."""
     import importlib
 
     from spair_pytorch_tpu_torch.data import glyph_bank
     from spair_pytorch_tpu_torch.models import infer, init_params
     from spair_pytorch_tpu_torch.parallel import (create_train_state,
                                                   make_train_step)
+    from spair_pytorch_tpu_torch.parallel.mesh import make_mesh, replicate
     from spair_pytorch_tpu_torch.train import data_config
 
     ts = importlib.import_module("spair_pytorch_tpu_torch.parallel."
@@ -2901,6 +3260,36 @@ def failed_capture_phase(dev):
     cfg = main_path_config()
     datagen = (data_config(cfg), torch.as_tensor(glyph_bank((14, 14)),
                                                  device=dev))
+    # 20(c) a host read in the mesh step's scenes, before its collectives:
+    # both calls raise, and only the warm-up step ran
+    real_scenes = ts.generate_host_local
+
+    def read(*a):
+        x, gt_bbox, gt_count = real_scenes(*a)
+        return x * (x.sum().item() > -1), gt_bbox, gt_count
+    ts.generate_host_local = read
+    world = make_mesh(dev)
+    try:
+        state = replicate(world, create_train_state(cfg, device=dev))
+        step = make_train_step(cfg, world, datagen=datagen,
+                               steps_per_call=3)
+        errors = []
+        for _ in range(2):
+            try:
+                step(state)
+            except RuntimeError as e:
+                errors.append(type(e).__name__ + ": "
+                              + str(e).strip().splitlines()[0][:80])
+        torch.cuda.synchronize()
+    finally:
+        ts.generate_host_local = real_scenes
+        world.close()
+    phase("mesh-captured", f"a .item() injected into the mesh step: both "
+                           f"calls raise ({errors}); steps run: "
+                           f"{int(state.step)} (the warm-up)")
+    if len(errors) != 2 or int(state.step) != 1:
+        raise AssertionError("a failed mesh capture ran the step eagerly")
+    del state, step
     # 17(j) a host read in the step: the capture raises, nothing runs eagerly
     # in its place
     real_norm = ts.global_norm
@@ -3138,6 +3527,13 @@ def main():
 
     # 19. render_topk captured as segments around the render's branch
     topk_k, _ = topk_phase(K, card, dev)
+
+    # 20. the data-parallel step and the split refiner captured
+    t_phase = time.perf_counter()
+    mesh_k = mesh_capture_phase(card, dev)
+    refine_graph_k = refine_capture_phase(K, card, dev)
+    phase("refine-captured", f"phase 20 in "
+                             f"{time.perf_counter() - t_phase:.1f} s")
     failed_capture_phase(dev)
     # each path's own launches, from its own run with the counts set to 0
     # just before it: `launches` is the main path's (phase 9, K1/K2) or the
@@ -3152,7 +3548,8 @@ def main():
     for name, counts in {**bench_k,
                          **{f"captured_k{CAPTURED_K}_{b}": n
                             for b, n in captured_k.items()},
-                         **forward_k, **topk_k}.items():
+                         **forward_k, **topk_k, **mesh_k,
+                         **refine_graph_k}.items():
         for path, n in zip(paths, counts):
             if n:
                 path[name] = n

@@ -29,6 +29,12 @@ composites the B*M parents (one object a scene) and one call all B*M*6
 candidates (two objects a scene), each split into calls of at most
 ``MAX_SCENES`` scenes, the kernel's limit.
 
+The JAX package jits the refiner; on a CUDA device ``make_refiner``'s
+program is a captured CUDA graph, one per batch size (``parallel/
+captured.py::CapturedForward``), so nothing in it reads the host: the
+candidate table is a device tensor made once per device and dtype, and the
+margin and the presence threshold are 0-d tensors the graph reads.
+
 Decisions that follow the JAX package, the reference:
 - top-M ties go to the lower detection index (``jax.lax.top_k``), by a
   stable descending sort; best-candidate ties to the first candidate;
@@ -40,7 +46,7 @@ Decisions that follow the JAX package, the reference:
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 from typing import Dict
 
 import torch
@@ -88,11 +94,18 @@ _CANDIDATES = (
 N_CANDIDATES = len(_CANDIDATES)
 
 
+@lru_cache(maxsize=None)
+def candidate_table(device: torch.device, dtype: torch.dtype):
+    """``_CANDIDATES`` as a (C, 6) tensor on ``device``, made once per
+    device and dtype: the first call copies it from the host, outside any
+    capture (a captured program's first run is eager)."""
+    return torch.tensor(_CANDIDATES, dtype=dtype, device=device)
+
+
 def split_candidates(parent_zw):
     """Child-box pairs of every candidate split of every parent: (..., 4)
     normalized -> (..., N_CANDIDATES, 2, 4) normalized."""
-    t = torch.tensor(_CANDIDATES, dtype=parent_zw.dtype,
-                     device=parent_zw.device)                  # (C, 6)
+    t = candidate_table(parent_zw.device, parent_zw.dtype)     # (C, 6)
     xt, yt, xs, ys = (parent_zw[..., None, i] for i in range(4))
     ax = torch.stack([xt + t[:, 0] * xs, yt + t[:, 1] * ys,
                       t[:, 4] * xs, t[:, 5] * ys], dim=-1)
@@ -333,23 +346,59 @@ def apply_splits(det: Dict, gains: Dict, margin, pres_threshold,
 
 def make_refiner(cfg: SpairConfig, *, top_m: int = 12, window_px: int = 32,
                  window_grow: float = 1.5, window_min_frac: float = 0.14,
-                 max_neighbor_iou: float = 0.3, ink_min: float = 0.0):
+                 max_neighbor_iou: float = 0.3, ink_min: float = 0.0,
+                 eager: bool = False):
     """refine(params, x, det, margin, pres_threshold) -> det', composing
     with the detector:
 
         det = make_detector(cfg, nms_iou=...)(params, x)
         det = make_refiner(cfg)(params, x, det, margin, threshold)
-    """
+
+    On a CUDA device it is captured, as the JAX package jits it: one CUDA
+    graph for each batch size, bound to the parameters of the first call
+    (``parallel/captured.py::CapturedForward``), with x, ``det``'s boxes
+    and scores, ``margin`` and ``pres_threshold`` as static inputs. The two
+    numbers, floats or 0-d tensors (``±inf`` too), become 0-d float32
+    tensors on the card, filled before each replay, as the comparisons
+    with float32 gains read them either way. The CPU and the NaN hunter
+    keep it eager, decided at the first call, as does ``eager``: the A/B of
+    the two forms."""
     gains_fn = partial(split_gains, cfg=cfg, top_m=top_m,
                        window_px=window_px, window_grow=window_grow,
                        window_min_frac=window_min_frac)
 
     @torch.no_grad()
-    def refine(params, x, det, margin, pres_threshold):
-        gains = gains_fn(params, x=x, boxes=det["boxes"],
-                         scores=det["scores"], pres_threshold=pres_threshold)
-        return apply_splits(det, gains, margin, pres_threshold,
+    def program(params, x, boxes, scores, margin, pres_threshold):
+        gains = gains_fn(params, x=x, boxes=boxes, scores=scores,
+                         pres_threshold=pres_threshold)
+        return apply_splits({"boxes": boxes, "scores": scores}, gains,
+                            margin, pres_threshold,
                             max_neighbor_iou=max_neighbor_iou,
                             ink_min=ink_min)
 
+    run = None  # chosen at the first call, from the images' device
+
+    def refine(params, x, det, margin, pres_threshold):
+        nonlocal run
+        if run is None:
+            from spair_pytorch_tpu_torch.parallel import captured
+            run = program
+            if not eager and captured.forward_eager_reason(
+                    cfg, x.device) is None:
+                run = captured.CapturedForward(program)
+        if run is program:
+            return program(params, x, det["boxes"], det["scores"], margin,
+                           pres_threshold)
+        return run(params, x, det["boxes"], det["scores"],
+                   _f32_scalar(margin, x.device),
+                   _f32_scalar(pres_threshold, x.device))
+
     return refine
+
+
+def _f32_scalar(v, device):
+    """A float or a 0-d tensor as a 0-d float32 tensor on ``device``: one
+    static input of the captured refiner for either."""
+    if torch.is_tensor(v):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.full((), v, dtype=torch.float32, device=device)

@@ -208,7 +208,7 @@ def paste_window_rows(cfg: SpairConfig, image_hw):
 
 
 def render_objects(params, cfg: SpairConfig, z_attr, z_where, z_depth,
-                   z_pres, dtype=None):
+                   z_pres, dtype=None, reduce_live=None):
     """The part of ``render`` before its top-K branch: (objects,
     live_at_most_k).
 
@@ -219,7 +219,10 @@ def render_objects(params, cfg: SpairConfig, z_attr, z_where, z_depth,
     says render branches: a 0-d bool tensor on the device, whether no image
     has more than K live objects, counted in int32 (exact for any grid; the
     compute dtype's integers are exact only so far: bf16 to 256); None
-    otherwise."""
+    otherwise. ``reduce_live``, for a data-parallel step, takes the 0-d
+    int32 largest live count of this process's images to the largest over
+    the ranks (``parallel/mesh.py::global_max``), so every rank reads the
+    global batch's predicate, as the JAX step's sharded max does."""
     b, gh, gw = z_attr.shape[:3]
     n = gh * gw
 
@@ -242,8 +245,10 @@ def render_objects(params, cfg: SpairConfig, z_attr, z_where, z_depth,
                "scores": flat(z_pres)[..., 0], "gate": gate, "grid": (gh, gw)}
     live_at_most_k = None
     if branches:
-        live = torch.sum((gate > 0).to(torch.int32), dim=1)
-        live_at_most_k = torch.max(live) <= cfg.render_topk
+        most = torch.max(torch.sum((gate > 0).to(torch.int32), dim=1))
+        if reduce_live is not None:
+            most = reduce_live(most)
+        live_at_most_k = most <= cfg.render_topk
     return objects, live_at_most_k
 
 

@@ -237,12 +237,13 @@ def forward(params, cfg: SpairConfig, x, step, generator=None, noise=None,
 
 
 def forward_head(params, cfg: SpairConfig, x, step, generator=None,
-                 noise=None):
+                 noise=None, reduce_live=None):
     """``forward`` up to the render's top-K branch: inference, the KLs, the
     object decoder and the gate (``render.py::render_objects``). Returns
     what ``forward_tail`` takes: x, the latents ``z``, the ``kls``, the
     decoded ``objects`` and the branch's predicate ``live_at_most_k`` (a
-    0-d bool tensor on the device, or None when render does not branch)."""
+    0-d bool tensor on the device, or None when render does not branch;
+    ``reduce_live`` as ``render_objects`` takes it)."""
     z = infer_latents(params, cfg, x, step, generator, noise)
     nan_hunter("after inference", z_where=z["z_where"], z_pres=z["z_pres"],
                z_depth=z["z_depth"], feat=z["feat_flat"])
@@ -254,7 +255,7 @@ def forward_head(params, cfg: SpairConfig, x, step, generator=None,
     nan_hunter("KL divergence", **kls)
     objects, live_at_most_k = render_objects(
         params, cfg, z["z_attr"], z["z_where"], z["z_depth"], z["z_pres"],
-        compute_dtype(cfg))
+        compute_dtype(cfg), reduce_live)
     return {"x": x, "z": z, "kls": kls, "objects": objects,
             "live_at_most_k": live_at_most_k}
 

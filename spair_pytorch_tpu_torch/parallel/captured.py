@@ -53,15 +53,29 @@ there would raise at its capture, and the warm-up checks it). Which branch
 each step took is counted on the host (``Branches``). Without
 ``render_topk`` the step is one graph, as above.
 
+The data-parallel step (``mesh``, ``parallel/mesh.py``) is captured as
+the plain step is: its collectives (the flat gradient all-reduce, the
+metrics' all-gather and, with ``render_topk``, the MAX all-reduce of the
+live count in segment A) are NCCL kernels inside the graphs. Every rank
+captures at its first call and replays the same graphs in the same order:
+the branch's predicate is the global batch's, so every rank replays the
+same B. NCCL's communicator exists before the capture (``make_mesh``).
+The captures keep torch's default 'global' capture-error mode, in which a
+CUDA call another thread makes mid-capture can invalidate it: torch
+2.11's ProcessGroupNCCL watchdog thread, which polls the events of eager
+collectives, did not (``chip_smoke.py`` phase 20(a): a fresh group's
+first collective captured, then ten captures, each after 30 eager
+collectives, replayed 200 times each; the mesh steps on one and four
+cards). 'thread_local' would only stop catching such calls from other
+threads, so no capture asks for it.
+
 What stays eager (``eager_reason``) is decided from the configuration
 before any capture, never on a failure; a capture that fails (of any
-segment) raises, and the step is not retried. These are the next captures,
-in this order:
+segment) raises, and the step is not retried:
 
 - the CPU: no CUDA graphs there; every CPU caller keeps the eager step;
-- ``mesh``: NCCL's all-reduce inside a capture is a later slice;
 - the NaN hunter and the whole-program NaN check (``utils/debug.py``): they
-  read flags on the host every call.
+  read flags on the host every call, by design.
 
 The forward programs. ``CapturedForward`` is the no-grad counterpart of
 the JAX package's jitted forward programs: the detector
@@ -79,9 +93,9 @@ dict copies in place and passes) and to the generator registered with it.
 ``render_topk`` (the eval step and ``evaluate``'s batch program): for each
 shape a graph of the program up to the branch and one of each branch's
 rest, replayed around the host's read of the predicate, as the step's
-segments are. ``forward_eager_reason`` keeps these programs eager on the
-CPU and under the NaN hunter. The refiner (``models/refine.py``) and
-``mesh`` stay eager.
+segments are. The split refiner (``models/refine.py::make_refiner``) is a
+``CapturedForward`` too, one graph per batch size. ``forward_eager_reason``
+keeps these programs eager on the CPU and under the NaN hunter.
 """
 
 from __future__ import annotations
@@ -106,9 +120,7 @@ COUNTED = (_k12.composite_forward, _k12.composite_backward,
 
 def eager_reason(cfg: SpairConfig, device, mesh=None) -> Optional[str]:
     """Why a train step of ``cfg`` on ``device`` runs eagerly, or None
-    when it is captured."""
-    if torch.device(device).type == "cuda" and mesh is not None:
-        return "mesh: the gradient all-reduce (NCCL) is not captured"
+    when it is captured; with a ``mesh`` or without, alike."""
     return forward_eager_reason(cfg, device)
 
 

@@ -11,6 +11,14 @@ comes from the environment that ``torchrun`` sets (``RANK``,
 it the world has one rank. The backend is NCCL on CUDA devices (rank r on
 ``cuda:LOCAL_RANK``) and gloo on the CPU. A failed init raises.
 
+On the card the data-parallel step is captured as a CUDA graph as the
+one-process step is (``parallel/captured.py``), NCCL's collectives inside
+it. So every collective of a step is one a graph can hold: its buffers are
+made inside the step (a capture places them in the graph's pool), its
+result is written into a tensor of a fixed shape, and the NCCL
+communicator exists before the first step (``make_mesh`` creates it with
+the group): its creation is not work a capture can hold.
+
 The mesh's second axis, 'model' (the JAX package's ``parallel/
 constraints.py``, which shards the object axis of the glimpse and render
 paths over devices and lets GSPMD insert the collectives), is not ported,
@@ -56,6 +64,9 @@ class Mesh:
 
     def close(self):
         if self.owns_group and dist.is_initialized():
+            if self.device.type == "cuda":
+                # no collective of a replayed graph is left in flight
+                torch.cuda.synchronize(self.device)
             dist.destroy_process_group()
 
 
@@ -86,8 +97,12 @@ def make_mesh(device="cuda") -> Mesh:
     else:
         raise ValueError(f"WORLD_SIZE={world} needs MASTER_ADDR and "
                          "MASTER_PORT (torchrun sets them)")
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                            init_method=init, world_size=world, rank=rank)
+    # device_id: NCCL's communicator is created here, not by the first
+    # collective, which may lie inside a capture
+    cuda = device.type == "cuda"
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=init,
+                            world_size=world, rank=rank,
+                            device_id=device if cuda else None)
     return Mesh(world, rank, device, True)
 
 
@@ -129,7 +144,8 @@ def replicate(mesh: Mesh, state):
 
 
 def all_reduce_(tensors: Sequence[torch.Tensor]):
-    """Sum ``tensors`` over the ranks in place, as one flat all-reduce."""
+    """Sum ``tensors`` over the ranks in place, as one flat all-reduce of a
+    buffer made here (inside a capture, in the graph's pool)."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM)
     offset = 0
@@ -138,16 +154,25 @@ def all_reduce_(tensors: Sequence[torch.Tensor]):
         offset += t.numel()
 
 
+def global_max(count: torch.Tensor) -> torch.Tensor:
+    """The largest of every rank's 0-d int32 ``count``, as a new 0-d
+    tensor (one MAX all-reduce)."""
+    out = count.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX)
+    return out
+
+
 def reduce_metrics(mesh: Mesh, metrics: Dict[str, torch.Tensor]):
-    """The step's scalars over the ranks, in one all-gather: the loss terms
-    (``losses/*``, each rank's share of the global loss) summed,
-    ``debug/pres_count_max`` the largest, every other scalar averaged."""
+    """The step's scalars over the ranks, in one all-gather into a
+    (world, keys) buffer: the loss terms (``losses/*``, each rank's share
+    of the global loss) summed, ``debug/pres_count_max`` the largest, every
+    other scalar averaged."""
     keys = list(metrics)
     local = torch.stack([metrics[k].to(torch.float32).reshape(())
                          for k in keys])
-    gathered = [torch.empty_like(local) for _ in range(mesh.world_size)]
-    dist.all_gather(gathered, local)
-    every = torch.stack(gathered)                  # (world, keys)
+    every = local.new_empty(mesh.world_size * len(keys))
+    dist.all_gather_into_tensor(every, local)
+    every = every.view(mesh.world_size, len(keys))
     sums, maxes, means = (torch.sum(every, dim=0), torch.amax(every, dim=0),
                           torch.mean(every, dim=0))
     return {k: (sums if k.startswith("losses/") else

@@ -11,7 +11,7 @@ On a CUDA device the step ``make_train_step`` returns is one captured CUDA
 graph, replayed once a step: K steps a call are K replays of it, as the JAX
 step is one device program with K steps scanned inside
 (``parallel/captured.py``, which also lists the configurations that stay
-eager: the CPU, ``mesh`` and the NaN hunter). With ``render_topk`` it is
+eager: the CPU and the NaN hunter). With ``render_topk`` it is
 two segments around the render's top-K branch, the JAX step's
 ``lax.cond``: ``train_step_head`` up to it and ``train_step_tail`` after
 it, with the branch's predicate read on the host between them
@@ -24,8 +24,12 @@ the same state and keeps its slice, so the ranks together compute the
 one-process step. Each rank's loss is its share of the global loss (the
 reconstruction sum over its slice plus the batch-mean terms over the global
 batch, ``forward(batch_share=)``); the gradients are summed over the ranks
-before clipping and Adam, and the metrics are reduced. At world size 1 the
-step is the step without a mesh, bit for bit.
+before clipping and Adam, and the metrics are reduced. With
+``render_topk`` the branch's predicate is the global batch's: the largest
+live count is reduced over the ranks first, so every rank takes the branch
+the one-process step takes. At world size 1 the step is the step without a
+mesh, bit for bit. On the card it is captured as the plain step is, with
+NCCL's collectives inside the graph.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ from spair_pytorch_tpu_torch.parallel.captured import (Branches,
                                                        eager_reason,
                                                        forward_eager_reason)
 from spair_pytorch_tpu_torch.parallel.mesh import (Mesh, all_reduce_,
-                                                   reduce_metrics)
+                                                   global_max, reduce_metrics)
 from spair_pytorch_tpu_torch.utils.debug import grad_norms_by_head
 
 
@@ -129,10 +133,12 @@ def train_step(cfg: SpairConfig, state: TrainState, x, gt_bbox=None,
 def train_step_head(cfg: SpairConfig, state: TrainState, x, noise=None,
                     mesh: Optional[Mesh] = None):
     """``train_step`` up to the render's top-K branch: the gradients
-    zeroed and ``forward_head``; returns its carry, with the batch share
-    the tail's loss needs."""
-    batch_share = 1.0
+    zeroed and ``forward_head`` (with ``mesh``, the branch's predicate over
+    the global batch); returns its carry, with the batch share the tail's
+    loss needs."""
+    batch_share, reduce_live = 1.0, None
     if mesh is not None:
+        reduce_live = global_max
         global_b = x.shape[0] * mesh.world_size
         batch_share = x.shape[0] / global_b
         if noise is None:
@@ -142,7 +148,7 @@ def train_step_head(cfg: SpairConfig, state: TrainState, x, noise=None,
             noise = {k: v[start:stop] for k, v in full.items()}
     state.optimizer.zero_grad(set_to_none=False)
     head = forward_head(state.model, cfg, x, state.step, state.generator,
-                        noise)
+                        noise, reduce_live)
     head["batch_share"] = batch_share
     return head
 
@@ -217,10 +223,13 @@ def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
     bound to that call's state (``parallel/captured.py``). With
     ``render_topk`` (``render.py::topk_branches``) the step is captured as
     segments around the render's branch, A replayed, the branch read on the
-    host, then the branch's B (``captured.SegmentedStep``). The step stays
-    eager where ``captured.eager_reason`` gives a reason (the CPU,
-    ``mesh``, the NaN hunter), decided at the first call, or when ``eager``
-    is set: the A/B of the two forms in ``chip_smoke.py`` and the tests.
+    host, then the branch's B (``captured.SegmentedStep``). With ``mesh``
+    the collectives are inside the graphs: every rank captures at its
+    first call and replays in step with the others. The step stays eager
+    where ``captured.eager_reason`` gives a reason (the CPU, the NaN
+    hunter), decided at the first call, or when ``eager`` is set: the A/B
+    of the two forms in ``chip_smoke.py``, ``tools/dp_check.py`` and the
+    tests.
 
     With ``render_topk`` the returned function's ``branches`` (a
     ``captured.Branches``) counts the branch each step took, eager or

@@ -9,8 +9,9 @@ end on request. By default scenes are generated on the device from the
 train state's generator, ``steps_per_call`` steps per call; metrics stay on
 the device and reach the host ``log_flush_every`` steps at a time. On the
 card every step is a replay of one CUDA graph that ``make_train_step``
-captures at its first call, after a restore (``parallel/captured.py``);
-``--mesh`` and ``render_topk`` runs stay eager.
+captures at its first call, after a restore (``parallel/captured.py``):
+``render_topk`` runs as segments around the render's branch, and
+``--mesh`` runs with NCCL's collectives inside the graph.
 
 As in the JAX package, ``--data native`` (the C++ generator, ``data/
 native.py``) and ``--hdf5`` (a reference-schema file, ``data/

@@ -6,8 +6,9 @@ on the CPU.
 (a) NMS with no host read (``nms_keep_batch(early_exit=False)``, the
 captured detector's form) keeps JAX's keep mask, on random scenes and on a
 chain of N boxes each of which suppresses the next (depth N - 1, N sweeps).
-(b) Each program as a capture takes it makes no host read, no tensor from
-host data and no data-shaped op after its warm-up: ``CapturedForward`` is
+(b) Each program as a capture takes it (the split refiner's too) makes no
+host read, no tensor from host data and no data-shaped op after its
+warm-up: ``CapturedForward`` is
 replaced by a stand-in that runs the first call of each shape as the
 warm-up does and every later call, where the card would capture and replay,
 under the guard of ``tests/test_torch_captured_step.py``; the device is
@@ -26,6 +27,7 @@ re-seeding) is in ``tests/test_torch_kernel_gpu.py``."""
 import contextlib
 import dataclasses
 import importlib
+import math
 import types
 import weakref
 
@@ -40,6 +42,7 @@ from spair_pytorch_tpu_torch import eval as teval
 from spair_pytorch_tpu_torch import metrics as tmetrics
 from spair_pytorch_tpu_torch.config import PRESETS
 from spair_pytorch_tpu_torch.models import infer as tinfer
+from spair_pytorch_tpu_torch.models import refine as trefine
 from spair_pytorch_tpu_torch.models.latents import geometry, noise_shapes
 from spair_pytorch_tpu_torch.models.render import takes_topk
 from spair_pytorch_tpu_torch.models.spair import forward, infer_latents
@@ -242,6 +245,29 @@ def test_detector_program_makes_no_host_read(as_captured, tiny, weights,
             assert_close(got[k], np.asarray(ref[k]))
         np.testing.assert_array_equal(got["count"].numpy(),
                                       np.asarray(ref["count"]))
+
+
+@pytest.mark.parametrize("margin", [0.0, "tensor", math.inf, -math.inf])
+def test_refiner_program_makes_no_host_read(as_captured, tiny, margin):
+    """make_refiner's program at B=2 after the detector, called twice (the
+    second guarded), with the margin a float, a 0-d tensor or an infinity
+    (-inf with max_neighbor_iou 1, which splits every live detection of
+    the top M): the four outputs equal the eager refiner's bit for bit."""
+    _, model, x = tiny
+    det = tinfer.make_detector(CFG, 0.5, 0.5, eager=True)(model, t(x))
+    if margin == "tensor":
+        margin = torch.tensor(0.0)
+    kw = dict(top_m=5, max_neighbor_iou=1.0 if margin == -math.inf else 0.3)
+    refiner = trefine.make_refiner(CFG, **kw)
+    calls = [refiner(model, t(x), det, margin, 0.5) for _ in range(2)]
+    assert [p.guarded for p in as_captured.made] == [1]
+    want = trefine.make_refiner(CFG, eager=True, **kw)(model, t(x), det,
+                                                       margin, 0.5)
+    for got in calls:
+        assert sorted(got) == ["boxes", "count", "n_split", "scores"]
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    if margin == -math.inf:
+        assert int(want["n_split"].sum()) > 0
 
 
 def test_the_detector_step_is_the_parents_int_step(tiny):

@@ -9,8 +9,12 @@ of a list or a number, ``torch.from_numpy``, ...) refused and with the ops
 whose output shape depends on the data refused. On the CPU the optimizer
 is not capturable and reads its step count with ``.item()``: those count
 tensors alone are exempt (on CUDA ``optimizer()`` keeps them on the device).
-(b) Which configurations stay eager, and why: ``render_topk`` no longer
-among them (its segments are held in ``tests/test_torch_captured_topk.py``).
+The same for the data-parallel step at world size 1 over gloo, whose
+collectives a capture holds on the card (``world_of_one``; its segmented
+form with ``render_topk`` is in ``tests/test_torch_captured_topk.py``).
+(b) Which configurations stay eager, and why: ``render_topk`` and ``mesh``
+no longer among them (the top-K segments are held in
+``tests/test_torch_captured_topk.py``).
 (c) The CPU step is the
 parent commit's eager step, bit for bit: ``make_train_step`` against a
 loop of ``train_step`` with the parent's Adam.
@@ -34,7 +38,7 @@ from spair_pytorch_tpu_torch.models.render import topk_branches
 from spair_pytorch_tpu_torch.parallel import (TrainState, create_train_state,
                                               make_train_step, train_step)
 from spair_pytorch_tpu_torch.parallel.captured import eager_reason
-from spair_pytorch_tpu_torch.parallel.mesh import Mesh
+from spair_pytorch_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate
 from spair_pytorch_tpu_torch.utils import debug
 
 # the module (the package exports its function ``train_step`` by that name)
@@ -169,6 +173,33 @@ def test_batch_step_makes_no_host_read(with_detection):
     assert len(metrics) == (24 if with_detection else 20)
 
 
+@pytest.fixture
+def world_of_one(monkeypatch):
+    """A data-parallel world of one rank over gloo, as ``make_mesh`` starts
+    it without torchrun's environment."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    mesh = make_mesh("cpu")
+    try:
+        yield mesh
+    finally:
+        mesh.close()
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_mesh_step_makes_no_host_read(world_of_one, k):
+    """The data-parallel step (its gradient all-reduce and metrics
+    all-gather), a call of K steps after a warm-up call, under the guard."""
+    step = make_train_step(MAIN, world_of_one, datagen=data(MAIN),
+                           steps_per_call=k)
+    state = replicate(world_of_one, create_train_state(MAIN, device="cpu"))
+    step(state)
+    with no_host_reads(step_counts(state)):
+        _, metrics = step(state)
+    assert int(state.step) == 2 * k
+    assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+
+
 @pytest.mark.parametrize("fault, message", [
     (lambda n: n * (n.item() > 0), "Tensor.item"),
     (lambda n: n * bool(n > 0), "Tensor.__bool__"),
@@ -196,8 +227,10 @@ def test_what_stays_eager():
     assert eager_reason(PRESETS["paper128"](), cuda) is None
     assert eager_reason(PRESETS["tpu_throughput"](), cuda) is None
     assert "CUDA device" in eager_reason(MAIN, "cpu")
+    # the data-parallel step is captured, its collectives in the graph
     mesh = Mesh(world_size=1, rank=0, device=cuda, owns_group=False)
-    assert "mesh" in eager_reason(MAIN, cuda, mesh)
+    assert eager_reason(MAIN, cuda, mesh) is None
+    assert "CUDA device" in eager_reason(MAIN, "cpu", mesh)
     for preset in ("cluttered_fine", "quality"):
         # captured as segments around the render's top-K branch
         assert eager_reason(PRESETS[preset](), cuda) is None

@@ -15,7 +15,9 @@ the top-K one.
 (a) A and each B make no host read, no tensor from host data and no
 data-shaped op (the guard of ``tests/test_torch_captured_step.py``; the
 CPU optimizer's step counts, which it reads with ``.item()``, are the only
-exemption, as there), and the predicate is read once a step, between them.
+exemption, as there), and the predicate is read once a step, between them;
+also for the data-parallel step at world size 1 over gloo, whose segment A
+reduces the live count over the ranks.
 (b) The segmented step equals the unsplit ``train_step`` bit for bit, in
 calls of one step and of three. (c) The same for the eval step and
 ``evaluate``, their segments under the guard with no exemption. (d) The
@@ -56,7 +58,8 @@ from tests.test_torch_captured_forward import (GuardedProgram,
                                                GuardedSegments, _patch,
                                                scenes, tiny_state)
 from tests.test_torch_captured_step import (assert_same_state, data,
-                                            no_host_reads, step_counts)
+                                            no_host_reads, step_counts,
+                                            world_of_one)
 from tests.test_torch_options import GRAD_REL, setup, tnoise
 from tests.test_torch_ops import F32_REL, assert_close, ported_params, t, tcfg
 
@@ -125,11 +128,16 @@ class Segments:
 def segments(monkeypatch):
     seg = Segments()
     real_gen, real_head = ts.generate_batch, ts.train_step_head
+    real_local = ts.generate_host_local
     real_tail, real_read = ts.train_step_tail, ts.takes_topk
 
     def gen(*a, **kw):
         seg.enter()
         return real_gen(*a, **kw)
+
+    def local(*a, **kw):  # a data-parallel step's scenes
+        seg.enter()
+        return real_local(*a, **kw)
 
     def head(*a, **kw):
         try:
@@ -151,6 +159,7 @@ def segments(monkeypatch):
             seg.log.append("read")
         return real_read(pred)
     monkeypatch.setattr(ts, "generate_batch", gen)
+    monkeypatch.setattr(ts, "generate_host_local", local)
     monkeypatch.setattr(ts, "train_step_head", head)
     monkeypatch.setattr(ts, "train_step_tail", tail)
     monkeypatch.setattr(ts, "takes_topk", read)
@@ -178,6 +187,23 @@ def test_step_segments_make_no_host_read(segments, mode, branch):
                                     "full": 4 * (branch == "full")}
     assert int(state.step) == 4
     assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+
+
+@pytest.mark.parametrize("branch", ["topk", "full"])
+def test_mesh_step_segments_make_no_host_read(segments, world_of_one,
+                                              branch):
+    """The data-parallel step at world size 1, reference mode: A (with the
+    live count's MAX all-reduce), one read, B (the gradient all-reduce and
+    the metrics' all-gather) a step, each segment under the guard."""
+    cfg = CFGS["reference"]
+    step = make_train_step(cfg, world_of_one, datagen=data(cfg),
+                           steps_per_call=2)
+    state = state_for("reference", branch)
+    step(state)
+    segments.armed, segments.log = True, []
+    step(state)
+    assert segments.log == ["A", "read", "B"] * 2
+    assert step.branches.last == [branch == "topk"] * 2
 
 
 def test_a_step_without_top_k_reads_nothing(segments):

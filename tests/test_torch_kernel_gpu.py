@@ -1270,6 +1270,98 @@ def test_captured_topk_eval_step_and_evaluate_equal_eager(deterministic,
                                            "full": 2 * (not topk)}
 
 
+@pytest.fixture
+def world_of_one(deterministic, monkeypatch):
+    """A data-parallel world of one rank over NCCL, as ``make_mesh`` starts
+    it without torchrun's environment; deterministic kernels."""
+    from spair_pytorch_tpu_torch.parallel.mesh import make_mesh
+
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    mesh = make_mesh("cuda")
+    try:
+        yield mesh
+    finally:
+        mesh.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["auto", "pallas_v3"])
+def test_captured_mesh_step_equals_eager_and_the_plain_step(world_of_one,
+                                                           backend):
+    """The data-parallel step at world size 1 (NCCL's collectives inside
+    the graph), 3 calls of one step and one of K = 2 after its first:
+    captured against the eager mesh step and the captured plain step,
+    every metric, parameter, Adam tensor, the step and the generator bit
+    for bit; each kernel of the path launched once a replayed step."""
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+    from spair_pytorch_tpu_torch.parallel.mesh import replicate
+
+    cfg, datagen = main_path(backend)
+    runs = {}
+    for arm, mesh, eager in (("mesh captured", world_of_one, False),
+                             ("mesh eager", world_of_one, True),
+                             ("plain captured", None, False)):
+        state = create_train_state(cfg, device="cuda")
+        if mesh is not None:
+            state = replicate(mesh, state)
+        one = make_train_step(cfg, mesh, datagen=datagen, eager=eager)
+        two = make_train_step(cfg, mesh, datagen=datagen, steps_per_call=2,
+                              eager=eager)
+        metrics = [one(state)[1] for _ in range(3)]
+        two(state)
+        before = [fn.launches for fn in counted()]
+        metrics.append(two(state)[1])
+        torch.cuda.synchronize()
+        launches = [fn.launches - n for fn, n in zip(counted(), before)]
+        assert launches == ([2, 2, 0, 0] if backend == "auto"
+                            else [0, 0, 2, 2]), (arm, launches)
+        runs[arm] = state, metrics
+    c, mc = runs["mesh captured"]
+    assert int(c.step) == 7
+    for other in ("mesh eager", "plain captured"):
+        o, mo = runs[other]
+        for got, want in zip(mc, mo):
+            assert list(got) == list(want)
+            assert all(torch.equal(got[k], want[k]) for k in want), other
+        for got, want in zip(state_tensors(c), state_tensors(o)):
+            assert torch.equal(got, want), other
+        assert torch.equal(c.generator.get_state(), o.generator.get_state())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [4, 32])
+def test_captured_refiner_equals_eager(cuda, b):
+    """make_refiner captured (one graph for the batch size) against eager
+    after the captured detector: the first call, a replay, the margin as a
+    0-d tensor and as +inf, every output bit for bit; K1 launched twice a
+    replay."""
+    from spair_pytorch_tpu_torch.models.infer import make_detector
+    from spair_pytorch_tpu_torch.models.refine import make_refiner
+
+    cfg, params, x = paper128_detector_inputs(b, "f32", cuda)
+    det = make_detector(cfg, nms_iou=0.5)(params, x)
+    refine = make_refiner(cfg)
+    eager = make_refiner(cfg, eager=True)
+    first = refine(params, x, det, 0.0, 0.5)
+    before = K.composite_forward.launches
+    again = refine(params, x, det, 0.0, 0.5)
+    torch.cuda.synchronize()
+    assert K.composite_forward.launches - before == 2
+    as_tensor = refine(params, x, det, torch.zeros((), device=cuda),
+                       torch.full((), 0.5, device=cuda))
+    want = eager(params, x, det, 0.0, 0.5)
+    for got in (first, again, as_tensor):
+        assert list(got) == list(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    inf, want_inf = (f(params, x, det, float("inf"), 0.5)
+                     for f in (refine, eager))
+    assert all(torch.equal(inf[k], want_inf[k]) for k in want_inf)
+    assert int(inf["n_split"].sum()) == 0
+    assert again["boxes"].data_ptr() != first["boxes"].data_ptr()
+
+
 @pytest.mark.gpu
 def test_a_host_read_in_the_step_makes_the_capture_raise(cuda, monkeypatch):
     """A host read injected into the step: the warm-up step runs it

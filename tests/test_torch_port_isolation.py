@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``spair_pytorch_tpu_torch`` and
-nothing in ``chip_smoke.py`` imports jax or the JAX package; the port's
+nothing in ``chip_smoke.py`` or ``tools/dp_check.py`` imports jax or the
+JAX package; the port's
 config is its own copy and equals the JAX package's preset for preset; its
 entry points default to the card."""
 
@@ -58,11 +59,13 @@ def imported_names(tree):
             yield node.module
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "port sources"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "tools/dp_check.py",
+                                  "port sources"])
 def test_no_source_names_jax_or_the_jax_package(path):
     """An ast walk over chip_smoke.py (whose port imports sit inside
-    main) and over every source of the port, imports at any depth."""
-    if path == "chip_smoke.py":
+    main), over tools/dp_check.py (the four-card check, run on the card's
+    machine) and over every source of the port, imports at any depth."""
+    if path.endswith(".py"):
         files = [os.path.join(ROOT, path)]
     else:
         pkg = os.path.join(ROOT, "spair_pytorch_tpu_torch")

@@ -137,6 +137,24 @@ def test_make_refiner_matches_jax(setup, as_tensor):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
+def test_the_candidate_table_is_made_once_on_the_device():
+    """The (6, 6) candidate table is a tensor made once per device and
+    dtype, by the first call, and no later call makes a tensor from host
+    data (a copy a captured refiner cannot hold)."""
+    from tests.test_torch_captured_step import no_host_reads
+    zw = torch.rand((2, 3, 4), generator=torch.Generator().manual_seed(0),
+                    dtype=torch.float64)
+    first = refine.split_candidates(zw)
+    table = refine.candidate_table(zw.device, zw.dtype)
+    assert refine.candidate_table(torch.device("cpu"), torch.float64) \
+        is table
+    assert torch.equal(table, torch.tensor(refine._CANDIDATES,
+                                           dtype=torch.float64))
+    with no_host_reads():
+        again = refine.split_candidates(zw)
+    assert torch.equal(again, first)
+
+
 def test_top_m_ties_go_to_the_lower_index(setup):
     """Fewer live detections than top_m: after NMS most scores are exactly
     0, so the picks past the live ones are ties, which jax.lax.top_k gives

@@ -1,60 +1,157 @@
 #!/usr/bin/env python3
-"""Data-parallel training across ranks against one process.
+"""Data-parallel training across ranks against one process, and its
+steady-state time.
 
 Run once under ``torchrun``: every rank trains the ROADMAP main path
 (``--preset`` paper128, wavefront, gate 0.01, global batch ``--batch``)
-through
-``train(use_mesh=True)`` for ``--steps`` steps, one step a call, and rank 0
-writes its final parameters, its logged losses and its ms/step to
-``--out``. Then run it with ``--compare``: one process trains the same
-steps without a mesh and holds itself against that file: each step's loss
-(the ranks' losses summed, as the mesh logs it) and each parameter tensor,
-as max |mesh - one| / max |one|, and prints both ms/step (host clock
-around train(), set-up included). On the card the one-process run's step
-is a captured CUDA graph (``parallel/captured.py``) and the mesh run's is
-eager.
+through ``make_train_step(cfg, mesh, datagen=...)`` for ``--steps`` steps,
+one step a call, from a state ``replicate`` gave every rank. On the card
+the step is captured as a CUDA graph with NCCL's collectives inside it
+(``parallel/captured.py``); ``--eager`` runs the eager mesh step instead.
+Rank 0 writes its final parameters and the logged losses (each step's
+reduced over the ranks, as the mesh logs it) to ``--out``. Every rank
+then checks that Adam stays ``capturable`` with its step counts on its
+device after ``replicate`` of a trained state, as a resume gives it.
+
+Then run it with ``--compare`` and one or more such files: one process
+trains the same steps without a mesh (captured on the card) and holds each
+file against itself: each step's loss, as max |mesh - one| / max |one
+process's loss|, and each parameter tensor, as max |mesh - one| / max
+|one|. It exits with 1 when a loss differs by more than ``LOSS_BAR`` or a
+parameter tensor by more than ``PARAM_BAR``. Given two files (the captured
+and the eager mesh run), it also says whether they agree bit for bit.
+
+``--time K`` measures the steady state instead: every rank runs calls of
+K steps (``steps_per_call=K``) and, after the first call, CUDA events time
+``--calls`` more on each rank (3; 1 keeps the eager step's run short). The mesh step is timed in turns with the
+plain step at the rank's own batch (mesh, plain, plain, mesh), each rank's
+plain step on its own card with no collective, and one flat all-reduce
+of the gradients' size is timed alone; rank 0 prints one JSON line with
+each rank's ms/step of each, and the img/s of the global batch at the
+slowest rank's mean mesh ms/step, beside the card's name and power
+limit.
 
 TF32 is off. ``--dtype float32`` (the default) makes the comparison tight;
 ``--dtype bfloat16`` is the main path's compute type.
 
     torchrun --nproc-per-node 4 tools/dp_check.py --out runs/dp4.pt
-    python tools/dp_check.py --compare runs/dp4.pt
+    torchrun --nproc-per-node 4 tools/dp_check.py --eager --out runs/e4.pt
+    python tools/dp_check.py --compare runs/dp4.pt runs/e4.pt
+    torchrun --nproc-per-node 4 tools/dp_check.py --time 10 \\
+        --dtype bfloat16 --batch 512
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
-import os
+import subprocess
 import sys
-import tempfile
 import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from spair_pytorch_tpu_torch.config import PRESETS  # noqa: E402
-from spair_pytorch_tpu_torch.train import train  # noqa: E402
+from spair_pytorch_tpu_torch.data import digit_bank, resolve_source  # noqa
+from spair_pytorch_tpu_torch.parallel.mesh import (make_mesh,  # noqa: E402
+                                                   replicate)
+from spair_pytorch_tpu_torch.parallel.train_step import (  # noqa: E402
+    create_train_state, make_train_step)
+from spair_pytorch_tpu_torch.train import data_config  # noqa: E402
+
+LOSS_BAR = 1e-6    # each step's loss, relative to max |one process's|
+PARAM_BAR = 1e-4   # the worst parameter tensor, relative to its max |one|
 
 
-def run(cfg, steps, use_mesh, device):
-    """(state, logged losses, ms/step by the host clock around train(),
-    which ends with its metrics on the host)."""
-    with tempfile.TemporaryDirectory() as logdir:
-        t0 = time.perf_counter()
-        state = train(cfg, steps=steps, logdir=logdir, use_mesh=use_mesh,
-                      checkpoint_every=0, log_flush_every=steps,
-                      digits="font", verbose=False, device=device)
-        ms = (time.perf_counter() - t0) * 1e3 / steps
-        losses = []
-        path = os.path.join(logdir, "metrics.jsonl")
-        if os.path.exists(path):  # rank 0 alone logs
-            with open(path) as f:
-                losses = [r["losses/total"] for r in map(json.loads, f)
-                          if "losses/total" in r]
-    return state, losses, ms
+def make_step(cfg, mesh, device, eager, steps_per_call=1):
+    dcfg = data_config(cfg)
+    bank = torch.as_tensor(digit_bank(resolve_source("font"),
+                                      dcfg.patch_hw), device=device)
+    return make_train_step(cfg, mesh, datagen=(dcfg, bank),
+                           steps_per_call=steps_per_call, eager=eager)
+
+
+def fresh_state(cfg, mesh, device):
+    state = create_train_state(cfg, device=device)
+    return state if mesh is None else replicate(mesh, state)
+
+
+def run(cfg, steps, mesh, device, eager=False):
+    """(state, each step's logged loss as a float)."""
+    state = fresh_state(cfg, mesh, device)
+    step = make_step(cfg, mesh, device, eager)
+    losses = [step(state)[1]["losses/total"] for _ in range(steps)]
+    return state, [float(x) for x in losses]
+
+
+def adam_on_device(mesh, state):
+    """Whether Adam is ``capturable`` with every step count on the
+    parameters' device after ``replicate`` of this trained state, on this
+    rank (the CPU's Adam is not capturable: True there)."""
+    replicate(mesh, state)
+    device = next(state.model.parameters()).device
+    if device.type != "cuda":
+        return True
+    return (all(g["capturable"] for g in state.optimizer.param_groups)
+            and all(s["step"].device == device
+                    for s in state.optimizer.state.values()))
+
+
+def card(device):
+    if torch.device(device).type != "cuda":
+        return str(device)
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={torch.cuda.current_device()}"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        return torch.cuda.get_device_name()
+
+
+def ms_per_call(fn, calls, device):
+    """fn's ms a call over ``calls`` calls: CUDA events on the card, the
+    host clock on the CPU."""
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    if not cuda:
+        return (time.perf_counter() - t0) * 1e3 / calls
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def timed(cfg, mesh, device, k, calls, eager):
+    """This rank's ms/step over ``calls`` calls of ``k`` steps after the
+    first call (``mesh`` None: the plain step)."""
+    state = fresh_state(cfg, mesh, device)
+    step = make_step(cfg, mesh, device, eager, steps_per_call=k)
+    step(state)
+    return ms_per_call(lambda: step(state), calls, device) / k
+
+
+def all_reduce_ms(cfg, device, reps=20):
+    """(ms of one flat f32 all-reduce of the gradients' size, eager, after
+    3 warm-up ones; its MiB)."""
+    n = sum(p.numel() for p in create_train_state(
+        cfg, device=device).model.parameters())
+    flat = torch.ones(n, device=device)
+    for _ in range(3):
+        dist.all_reduce(flat)
+    return (ms_per_call(lambda: dist.all_reduce(flat), reps, device),
+            n * 4 / 2 ** 20)
 
 
 def main(argv=None):
@@ -65,7 +162,12 @@ def main(argv=None):
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--out", help="rank 0 writes the mesh run here")
-    p.add_argument("--compare", help="a file --out wrote")
+    p.add_argument("--compare", nargs="+", help="files --out wrote")
+    p.add_argument("--eager", action="store_true",
+                   help="the eager mesh step, not the captured one")
+    p.add_argument("--time", type=int, metavar="K",
+                   help="time calls of K steps instead of checking")
+    p.add_argument("--calls", type=int, default=3)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -74,33 +176,85 @@ def main(argv=None):
                               inference_mode="wavefront",
                               compute_dtype=args.dtype,
                               pres_gate_threshold=0.01)
-    if args.compare is None:
-        state, losses, ms = run(cfg, args.steps, True, args.device)
-        if int(os.environ.get("RANK", "0")) == 0:
-            torch.save({"params": [t.detach().cpu()
-                                   for t in state.model.parameters()],
-                        "losses": losses, "ms": ms,
-                        "world": int(os.environ.get("WORLD_SIZE", "1"))},
-                       args.out)
-        return 0
-    got = torch.load(args.compare)
-    state, losses, ms = run(cfg, args.steps, False, args.device)
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
-                                                       losses))
-    param_err = max(float((g - w.detach().cpu()).abs().max())
-                    / float(w.detach().abs().max())
-                    for g, w in zip(got["params"], state.model.parameters()))
-    name = (torch.cuda.get_device_name(0) if args.device == "cuda"
-            else args.device)
-    print(f"{args.steps} steps of {args.preset} ({args.dtype}, global batch "
-          f"{args.batch}): world {got['world']} {got['ms']:.3f} ms/step "
-          f"({args.batch / got['ms'] * 1e3:.1f} img/s) against one process "
-          f"{ms:.3f} ms/step ({args.batch / ms * 1e3:.1f} img/s); losses "
-          f"{got['losses'][0]:.3f} -> {got['losses'][-1]:.3f} against "
-          f"{losses[0]:.3f} -> {losses[-1]:.3f}, worst step rel diff "
-          f"{loss_err:.3e}; worst parameter tensor rel diff {param_err:.3e} "
-          f"({name}, host clock around train(), set-up included)")
-    return 0
+    captured = not args.eager and torch.device(args.device).type == "cuda"
+    arm = "captured" if captured else "eager"
+    if args.compare is not None:
+        return compare(cfg, args)
+    mesh = make_mesh(args.device)
+    try:
+        if args.time:
+            local = dataclasses.replace(
+                cfg, batch_size=args.batch // mesh.world_size)
+            ms = {"mesh": [], "plain": []}
+            for name in ("mesh", "plain", "plain", "mesh"):
+                ms[name].append(timed(
+                    cfg if name == "mesh" else local,
+                    mesh if name == "mesh" else None, mesh.device,
+                    args.time, args.calls, args.eager))
+            reduce_ms, mib = all_reduce_ms(cfg, mesh.device)
+            every = [None] * mesh.world_size
+            dist.all_gather_object(every, (ms, reduce_ms))
+            if mesh.is_main:
+                slowest = max(sum(m["mesh"]) / 2 for m, _ in every)
+                print(json.dumps({
+                    "preset": args.preset, "dtype": args.dtype, "arm": arm,
+                    "world": mesh.world_size, "global_batch": args.batch,
+                    "per_rank_batch": local.batch_size,
+                    "steps_per_call": args.time, "calls": args.calls,
+                    "ms_per_step_by_rank": [m["mesh"] for m, _ in every],
+                    "plain_ms_per_step_by_rank": [m["plain"]
+                                                  for m, _ in every],
+                    "all_reduce_ms_by_rank": [r for _, r in every],
+                    "grad_mib": mib,
+                    "img_per_s": args.batch / slowest * 1e3,
+                    "card": card(mesh.device)}))
+            return 0
+        state, losses = run(cfg, args.steps, mesh, mesh.device, args.eager)
+        params = [t.detach().cpu() for t in state.model.parameters()]
+        ok = [None] * mesh.world_size
+        dist.all_gather_object(ok, adam_on_device(mesh, state))
+        if mesh.is_main:
+            print(f"{arm} mesh step, world {mesh.world_size}: Adam "
+                  f"capturable with its step counts on the device after "
+                  f"replicate, by rank: {ok}")
+            torch.save({"params": params, "losses": losses, "arm": arm,
+                        "world": mesh.world_size}, args.out)
+        return 0 if all(ok) else 1
+    finally:
+        mesh.close()
+
+
+def compare(cfg, args):
+    state, losses = run(cfg, args.steps, None, args.device)
+    params = [w.detach().cpu() for w in state.model.parameters()]
+    scale = max(abs(x) for x in losses)
+    runs = [torch.load(f) for f in args.compare]
+    ok = True
+    for got in runs:
+        loss_err = max(abs(a - b) for a, b in zip(got["losses"],
+                                                  losses)) / scale
+        param_err = max(float((g - w).abs().max()) / float(w.abs().max())
+                        for g, w in zip(got["params"], params))
+        same = all(torch.equal(g, w) for g, w in zip(got["params"], params))
+        good = (len(got["losses"]) == len(losses) and loss_err <= LOSS_BAR
+                and param_err <= PARAM_BAR)
+        ok = ok and good
+        print(f"{args.steps} steps of {args.preset} ({args.dtype}, global "
+              f"batch {args.batch}): the {got['arm']} mesh step of world "
+              f"{got['world']} against one process: losses "
+              f"{got['losses'][0]:.3f} -> {got['losses'][-1]:.3f} against "
+              f"{losses[0]:.3f} -> {losses[-1]:.3f}, worst step diff "
+              f"{loss_err:.3e} of max |loss| (bar {LOSS_BAR:g}); worst "
+              f"parameter tensor rel diff {param_err:.3e} (bar "
+              f"{PARAM_BAR:g}); parameters equal bit for bit: {same}; "
+              f"{'pass' if good else 'FAIL'} ({card(args.device)})")
+    if len(runs) == 2:
+        a, b = runs
+        same = (a["losses"] == b["losses"] and all(
+            torch.equal(x, y) for x, y in zip(a["params"], b["params"])))
+        print(f"the {a['arm']} and the {b['arm']} mesh runs agree bit for "
+              f"bit (losses and parameters): {same}")
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
