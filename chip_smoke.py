@@ -10,8 +10,9 @@ CUDA graph against the eager step, the forward programs (detector,
 eval step, evaluate, calibrate) captured against eager, and the render_topk
 presets' train step, eval step and evaluate captured as segments around the
 render's top-K branch against eager, and the data-parallel step and the
-split refiner captured against eager, on one CUDA card, with random
-weights from the preset's seed:
+split refiner captured against eager, and the (data, model) mesh at
+world size 1 with its NCCL subgroups captured, on one CUDA card, with
+random weights from the preset's seed:
 
   1. device     the card's name and power limit (nvidia-smi);
   2. build      compiles csrc/composite_fwd.cu (K1, and K3 as its banded
@@ -224,13 +225,26 @@ weights from the preset's seed:
                 last, before 17(j): a .item() injected into the mesh step
                 makes its capture raise, and nothing runs eagerly in its
                 place.
+ 21. model axis
+                the mesh's 'model' axis on one card: (a) make_mesh(
+                n_model=1) at world 1 over NCCL, its captured step equal
+                to the captured plain step bit for bit (main path b128,
+                'auto', deterministic kernels) and its captured eval step
+                over the mesh (loss terms reduced, outputs gathered over
+                the data group inside the graph) equal to the captured
+                eval step without one; (b) fresh NCCL subgroups from
+                parallel/mesh.py::subgroups, their first collectives
+                (gather_cells' all-gather and reduce-scatter, an
+                all-reduce) inside one capture, replayed. Meshes of 2 and
+                4 ranks to a model group need several cards:
+                tools/dp_check.py --n-model.
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
 cuDNN convs in full f32), so kernels and plain versions are compared on the
 same arithmetic. The last two lines are a JSON summary of the kernels and
 the result line {"ok": true, "device": {...}}. A kernel's "launches" there
 are its own path's, K1/K2 from phase 9 and K3/K4 from phase 12, and its
-"path_launches" those of phase 15's to phase 20's paths, each read from
+"path_launches" those of phase 15's to phase 21's paths, each read from
 its own run. Launches of a captured step or program are counted over its
 replays.
 
@@ -3241,6 +3255,144 @@ def refine_capture_phase(K, card, dev):
     return launches
 
 
+# phase 21: the mesh's 'model' axis on one card: the (data, model) mesh at
+# world 1 (n_model = 1) and NCCL subgroups inside a capture
+def subgroup_capture_probe(dev):
+    """Phase 21(b): the subgroups ``parallel/mesh.py::subgroups`` makes, at
+    world 1 (a model group and a data group of one rank each), their first
+    collectives inside a capture: the model axis's all-gather and
+    reduce-scatter (``gather_cells`` forward and backward, through
+    ``shard_cells``) on the model group and an all-reduce on the data
+    group, captured together, replayed on new values. Returns (the replay's
+    max |diff| from what one rank computes, the seconds it took)."""
+    import types
+
+    import torch.distributed as dist
+
+    from spair_pytorch_tpu_torch.parallel.constraints import (gather_cells,
+                                                              shard_cells)
+    from spair_pytorch_tpu_torch.parallel.mesh import make_mesh, subgroups
+    t0 = time.perf_counter()
+    world = make_mesh(dev)
+    try:
+        data_group, model_group = subgroups(1, dev)
+        axis = types.SimpleNamespace(n_model=1, model_rank=0,
+                                     model_group=model_group)
+        x = torch.randn(4, 121, 56, device=dev, requires_grad=True)
+        cot = torch.randn(4, 121, 56, device=dev)
+        total = torch.zeros((), device=dev)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            y = gather_cells(shard_cells(x, axis) * 2.0, axis, 121)
+            grad, = torch.autograd.grad(y, x, cot)
+            total.copy_(y.detach().sum())
+            dist.all_reduce(total, group=data_group)
+        with torch.no_grad():
+            x.copy_(torch.randn_like(x))
+        cot.copy_(torch.randn_like(cot))
+        graph.replay()
+        torch.cuda.synchronize()
+        y, x = y.detach(), x.detach()
+        diff = max(float((y - 2.0 * x).abs().max()),
+                   float((grad - 2.0 * cot).abs().max()),
+                   float((total - (2.0 * x).sum()).abs()) / float(
+                       (2.0 * x).abs().sum()))
+        del graph
+        for group in (data_group, model_group):
+            dist.destroy_process_group(group)
+    finally:
+        world.close()
+    return diff, time.perf_counter() - t0
+
+
+def model_axis_phase(card, dev):
+    """Phase 21(a): ``make_mesh(n_model=1)`` at world 1 over NCCL (the
+    'model' axis's mesh, one rank to a model group) against phase 20's
+    result: its captured step equal to the captured plain step bit for bit
+    (main path b128, 'auto', deterministic kernels), and its captured eval
+    step over the mesh (the loss terms reduced and the outputs gathered
+    over the data group, inside the graph) equal to the captured eval step
+    without one. (b) ``subgroup_capture_probe``. Returns the K1-K4 launches
+    of the captured mesh call, counted over its replays."""
+    from spair_pytorch_tpu_torch.data import generate_batch, glyph_bank
+    from spair_pytorch_tpu_torch.models import init_params
+    from spair_pytorch_tpu_torch.parallel import make_eval_step
+    from spair_pytorch_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from spair_pytorch_tpu_torch.train import data_config
+
+    t_phase = time.perf_counter()
+    cfg = main_path_config()
+    bank = torch.as_tensor(glyph_bank((14, 14)), device=dev)
+    dcfg = data_config(cfg)
+    world = make_mesh(dev, n_model=1)
+    try:
+        coords = (world.n_data, world.n_model, world.data_rank,
+                  world.model_rank)
+        with Deterministic():
+            got = run_steps(cfg, (dcfg, bank), False, dev, world)
+            want = run_steps(cfg, (dcfg, bank), False, dev)
+        equal, total, diff, gen = same_run(got, want)
+        phase("model-axis", f"make_mesh(n_model=1) at world 1 (n_data, "
+                            f"n_model, data rank, model rank {coords}): "
+                            f"captured mesh step b{TRAIN_B} 'auto' against "
+                            f"the captured plain step, 5 calls of 1 step and"
+                            f" 1 of {CAPTURED_K} (deterministic kernels): "
+                            f"{equal} of {total} tensors equal bit for bit, "
+                            f"max |diff| {diff:.3e}; generators equal: "
+                            f"{gen}; launches K1-K4 {got[2]} (plain "
+                            f"{want[2]})")
+        if equal != total or not gen or got[2] != want[2]:
+            raise AssertionError("the n_model=1 mesh step differs from the "
+                                 "plain step")
+        launches = got[2]
+        del got, want
+
+        params = init_params(cfg, device=dev)
+        x = generate_batch(torch.Generator(device=dev).manual_seed(5), bank,
+                           B, dcfg)[0]
+        outs = {}
+        with Deterministic():
+            for name, mesh in (("mesh", world), ("plain", None)):
+                gen = torch.Generator(device=dev).manual_seed(6)
+                step = make_eval_step(cfg, mesh)
+                xs = x if mesh is None else shard_batch(mesh, (x,))[0]
+                outs[name] = [step(params, xs, 1500, gen) for _ in range(3)]
+            torch.cuda.synchronize()
+        pairs = [(a, b) for (la, aa), (lb, ab) in zip(outs["mesh"],
+                                                      outs["plain"])
+                 for a, b in [(la, lb)] + [
+                     (aa[k], ab[k]) for k in sorted(ab) if k != "losses"]
+                 + [(aa["losses"][k], ab["losses"][k])
+                    for k in sorted(ab["losses"])]]
+        equal = sum(torch.equal(a, b) for a, b in pairs)
+        phase("model-axis", f"captured eval step over the mesh (world 1) "
+                            f"against the captured eval step, B={B}, 3 "
+                            f"calls (the first eager, then replays): "
+                            f"{equal} of {len(pairs)} tensors equal bit for "
+                            f"bit")
+        if equal != len(pairs):
+            raise AssertionError("the eval step over the mesh differs")
+    finally:
+        world.close()
+    diff, probe_s = subgroup_capture_probe(dev)
+    phase("model-axis", f"fresh NCCL subgroups (model and data, one rank "
+                        f"each, made by parallel/mesh.py::subgroups): their "
+                        f"first collectives captured (gather_cells' "
+                        f"all-gather and its backward's reduce-scatter on "
+                        f"the model group, an all-reduce on the data group)"
+                        f" and replayed on new values: max rel diff "
+                        f"{diff:.3e} from one rank's result ({probe_s:.2f} "
+                        f"s); the (data, model) meshes of 2 and 4 ranks run "
+                        f"on four cards (tools/dp_check.py --n-model)")
+    if diff > 1e-6:
+        raise AssertionError(f"subgroup capture gave diff {diff}")
+    phase("model-axis", f"phase 21 in {time.perf_counter() - t_phase:.1f} s"
+                        f" ({card})")
+    return launches
+
+
 def failed_capture_phase(dev):
     """Phases 20(c), 17(j) and 18(d), last in the run since each leaves a
     failed capture behind: a host read injected into the captured mesh
@@ -3534,6 +3686,9 @@ def main():
     refine_graph_k = refine_capture_phase(K, card, dev)
     phase("refine-captured", f"phase 20 in "
                              f"{time.perf_counter() - t_phase:.1f} s")
+
+    # 21. the mesh's 'model' axis at world 1 and NCCL subgroups captured
+    model_axis_k = model_axis_phase(card, dev)
     failed_capture_phase(dev)
     # each path's own launches, from its own run with the counts set to 0
     # just before it: `launches` is the main path's (phase 9, K1/K2) or the
@@ -3549,7 +3704,8 @@ def main():
                          **{f"captured_k{CAPTURED_K}_{b}": n
                             for b, n in captured_k.items()},
                          **forward_k, **topk_k, **mesh_k,
-                         **refine_graph_k}.items():
+                         **refine_graph_k,
+                         "model_axis_mesh_n_model_1": model_axis_k}.items():
         for path, n in zip(paths, counts):
             if n:
                 path[name] = n

@@ -26,6 +26,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from spair_pytorch_tpu_torch.config import SpairConfig
 from spair_pytorch_tpu_torch.models.kl import (count_prior_kl,
@@ -135,12 +136,17 @@ def _tree_map(fn, *trees):
 
 
 def infer_latents(params, cfg: SpairConfig, x, step, generator=None,
-                  noise=None):
+                  noise=None, mesh=None):
     """The inference pass only: image -> latent grids (B, gh, gw, D),
     posterior (mean, std) pairs and presence probabilities. Shared by
     ``forward`` and the serving detector (models/infer.py).
 
-    ``noise`` (see sample_noise) overrides draws from ``generator``."""
+    ``noise`` (see sample_noise) overrides draws from ``generator``. With
+    a ``mesh`` whose 'model' axis has M > 1 ranks (``parallel/
+    constraints.py``) each rank of a model group runs the heads on its
+    block of the cells (independent mode) or of each front's lanes (the
+    scans, where M divides the lanes), and the blocks are gathered after
+    each: every rank returns the whole grid."""
     geom = geometry(cfg)
     _, (gh, gw), _ = geom
     n = gh * gw
@@ -160,11 +166,22 @@ def infer_latents(params, cfg: SpairConfig, x, step, generator=None,
             cfg.context_neighbors).expand(b, n, cfg.context_dim)
         cells = torch.arange(n, device=device)  # made on the device: the
         hw = torch.stack([cells // gw, cells % gw], -1)  # step is captured
-        flat = cell_step(params, cfg, geom, x, feat_flat, context, noise_flat,
-                         hw, tw, dtype)
+        if mesh is not None and mesh.n_model > 1:
+            from spair_pytorch_tpu_torch.parallel.constraints import \
+                shard_cells
+
+            def shard(t, dim=1):
+                return shard_cells(t, mesh, dim)
+            flat = _gathered(cell_step(
+                params, cfg, geom, x, shard(feat_flat), shard(context),
+                {name: shard(v) for name, v in noise_flat.items()},
+                shard(hw, 0), tw, dtype), mesh, n)
+        else:
+            flat = cell_step(params, cfg, geom, x, feat_flat, context,
+                             noise_flat, hw, tw, dtype)
     else:
         flat = _scan_inference(params, cfg, geom, x, feat_flat, noise_flat,
-                               tw, dtype, b, gh, gw)
+                               tw, dtype, b, gh, gw, mesh)
 
     def grid(t):
         # slot-major unfold into the virtual (gh, gw*S) grid
@@ -179,17 +196,34 @@ def infer_latents(params, cfg: SpairConfig, x, step, generator=None,
     return out
 
 
+def _gathered(out, mesh, n):
+    """``cell_step``'s outputs for this rank's block of cells, gathered
+    over the model group into the outputs of all ``n`` cells: packed into
+    one buffer, as the JAX scan packs a front's outputs, so that a block
+    costs one all-gather (and its backward one reduce-scatter)."""
+    from spair_pytorch_tpu_torch.parallel.constraints import gather_cells
+    leaves, tree = tree_flatten(out)
+    whole = gather_cells(torch.cat(leaves, dim=-1), mesh, n)
+    return tree_unflatten(list(torch.split(
+        whole, [t.shape[-1] for t in leaves], dim=-1)), tree)
+
+
 def _scan_inference(params, cfg, geom, x, feat_flat, noise_flat, tw, dtype,
-                    b, gh, gw):
+                    b, gh, gw, mesh=None):
     """Lateral-context inference over the schedule's fronts, as a loop.
 
     Features and noise are gathered for all fronts up front; each front
     reads its context from the halo board and writes its context vectors
     back in place (the reads are gathers, so autograd needs none of the
-    overwritten values). Outputs are put back in raster order at the end."""
+    overwritten values). Outputs are put back in raster order at the end.
+    With a ``mesh`` whose model axis M divides the lanes K, each rank runs
+    its block of K / M lanes of every front and the front's outputs are
+    gathered before its context vectors are written: the board stays
+    replicated, as in the JAX scan."""
     sched, idx = _schedule_tensors(cfg.inference_mode, gh, gw,
                                    cfg.n_lookback, x.device)
     s, k = sched["steps"], sched["lanes"]
+    shard = _lane_shard(k, mesh)
     board = params.virtual_edge_element.expand(
         b, sched["board_size"] + 1, cfg.context_elem_dim).clone()
 
@@ -202,15 +236,34 @@ def _scan_inference(params, cfg, geom, x, feat_flat, noise_flat, tw, dtype,
     noise = {name: pregather(v) for name, v in noise_flat.items()}
     outs = []
     for si in range(s):
-        ctx = board[:, idx["nbr_idx"][si].reshape(-1)].reshape(
-            b, k, cfg.context_dim)
-        out = cell_step(params, cfg, geom, x, feats[:, si], ctx,
-                        {name: v[:, si] for name, v in noise.items()},
-                        idx["cell_hw"][si], tw, dtype)
+        nbr = shard(idx["nbr_idx"][si], 0)
+        ctx = board[:, nbr.reshape(-1)].reshape(b, nbr.shape[0],
+                                                cfg.context_dim)
+        out = cell_step(params, cfg, geom, x, shard(feats[:, si]), ctx,
+                        {name: shard(v[:, si]) for name, v in noise.items()},
+                        shard(idx["cell_hw"][si], 0), tw, dtype)
+        if shard is not _whole:
+            out = _gathered(out, mesh, k)
         board[:, idx["write_idx"][si]] = out["context_vec"]
         outs.append(out)
     perm = idx["perm"]
     return _tree_map(lambda *steps: torch.cat(steps, dim=1)[:, perm], *outs)
+
+
+def _whole(t, dim=1):
+    return t
+
+
+def _lane_shard(k: int, mesh):
+    """shard(t, dim) -> this rank's block of a front's ``k`` lanes on axis
+    ``dim`` when the mesh's model axis splits them, else t itself."""
+    if mesh is None:
+        return _whole
+    from spair_pytorch_tpu_torch.parallel.constraints import (lanes_split,
+                                                              shard_cells)
+    if not lanes_split(k, mesh):
+        return _whole
+    return lambda t, dim=1: shard_cells(t, mesh, dim)
 
 
 def forward(params, cfg: SpairConfig, x, step, generator=None, noise=None,
@@ -237,14 +290,16 @@ def forward(params, cfg: SpairConfig, x, step, generator=None, noise=None,
 
 
 def forward_head(params, cfg: SpairConfig, x, step, generator=None,
-                 noise=None, reduce_live=None):
+                 noise=None, reduce_live=None, mesh=None):
     """``forward`` up to the render's top-K branch: inference, the KLs, the
     object decoder and the gate (``render.py::render_objects``). Returns
     what ``forward_tail`` takes: x, the latents ``z``, the ``kls``, the
     decoded ``objects`` and the branch's predicate ``live_at_most_k`` (a
     0-d bool tensor on the device, or None when render does not branch;
-    ``reduce_live`` as ``render_objects`` takes it)."""
-    z = infer_latents(params, cfg, x, step, generator, noise)
+    ``reduce_live`` as ``render_objects`` takes it). ``mesh``: the
+    inference's model axis (``infer_latents``); what follows it is
+    replicated on the ranks of a model group."""
+    z = infer_latents(params, cfg, x, step, generator, noise, mesh)
     nan_hunter("after inference", z_where=z["z_where"], z_pres=z["z_pres"],
                z_depth=z["z_depth"], feat=z["feat_flat"])
 

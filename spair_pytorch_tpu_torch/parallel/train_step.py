@@ -30,6 +30,14 @@ live count is reduced over the ranks first, so every rank takes the branch
 the one-process step takes. At world size 1 the step is the step without a
 mesh, bit for bit. On the card it is captured as the plain step is, with
 NCCL's collectives inside the graph.
+
+With a mesh whose 'model' axis has M > 1 ranks (``make_mesh(n_model=M)``)
+the batch slice is the data rank's, the inference's cells are split over
+the ranks of each model group (``parallel/constraints.py``), each rank's
+loss is scaled by 1 / M before the backward, and the gradients are summed
+over the world as above: the constraints module says why that is the
+one-process gradient. ``make_eval_step(cfg, mesh)`` evaluates over a mesh
+alike and returns the global batch's loss and outputs on every rank.
 """
 
 from __future__ import annotations
@@ -55,7 +63,8 @@ from spair_pytorch_tpu_torch.parallel.captured import (Branches,
                                                        eager_reason,
                                                        forward_eager_reason)
 from spair_pytorch_tpu_torch.parallel.mesh import (Mesh, all_reduce_,
-                                                   global_max, reduce_metrics)
+                                                   gather_batch, global_max,
+                                                   reduce_metrics)
 from spair_pytorch_tpu_torch.utils.debug import grad_norms_by_head
 
 
@@ -117,9 +126,9 @@ def train_step(cfg: SpairConfig, state: TrainState, x, gt_bbox=None,
     ``training_wheel``, the presence-count and gradient-norm diagnostics,
     and with ``gt_bbox``/``gt_count`` the four ``accuracy/*`` tags.
 
-    With ``mesh``, x is this rank's slice of the global batch and
-    ``noise``, when given, its slice of the global noise; the metrics come
-    back reduced over the ranks.
+    With ``mesh``, x is this rank's slice of the global batch (its data
+    rank's) and ``noise``, when given, its slice of the global noise; the
+    metrics come back reduced over the ranks.
 
     It is ``train_step_head``, the render's branch read on the host
     (``render.py::takes_topk``; no read without ``render_topk``), then
@@ -136,19 +145,28 @@ def train_step_head(cfg: SpairConfig, state: TrainState, x, noise=None,
     zeroed and ``forward_head`` (with ``mesh``, the branch's predicate over
     the global batch); returns its carry, with the batch share the tail's
     loss needs."""
+    state.optimizer.zero_grad(set_to_none=False)
+    return _head(state.model, cfg, x, state.step, state.generator, noise,
+                 mesh)
+
+
+def _head(params, cfg, x, step, generator, noise, mesh):
+    """``forward_head`` of this rank's x, with the batch share of the loss
+    it sets: with ``mesh``, noise drawn for the global batch and sliced to
+    this data rank's share, and the branch's predicate and the inference's
+    model axis over the mesh."""
     batch_share, reduce_live = 1.0, None
     if mesh is not None:
         reduce_live = global_max
-        global_b = x.shape[0] * mesh.world_size
+        global_b = x.shape[0] * mesh.n_data
         batch_share = x.shape[0] / global_b
         if noise is None:
             start, stop = mesh.slice(global_b)
-            full = sample_noise(state.generator, global_b, geometry(cfg)[1],
-                                cfg, x.device)
+            full = sample_noise(generator, global_b, geometry(cfg)[1], cfg,
+                                x.device)
             noise = {k: v[start:stop] for k, v in full.items()}
-    state.optimizer.zero_grad(set_to_none=False)
-    head = forward_head(state.model, cfg, x, state.step, state.generator,
-                        noise, reduce_live)
+    head = forward_head(params, cfg, x, step, generator, noise, reduce_live,
+                        mesh)
     head["batch_share"] = batch_share
     return head
 
@@ -162,7 +180,12 @@ def train_step_tail(cfg: SpairConfig, state: TrainState, head, topk: bool,
     for another tail (the first of a segmented step's two captures)."""
     model, opt = state.model, state.optimizer
     loss, aux = forward_tail(model, cfg, head, topk, head["batch_share"])
-    loss.backward(retain_graph=retain_graph)
+    if mesh is not None and mesh.n_model > 1:
+        # the gradient rule of parallel/constraints.py: the gradients are
+        # summed over the model group's M ranks by all_reduce_ below
+        (loss * (1.0 / mesh.n_model)).backward(retain_graph=retain_graph)
+    else:
+        loss.backward(retain_graph=retain_graph)
     # a parameter the loss does not reach has a zero gradient, as in JAX:
     # Adam still decays its moments
     grads = []
@@ -250,7 +273,7 @@ def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
             else:
                 x, gt_bbox, gt_count = generate_host_local(
                     state.generator, bank, dcfg, cfg.batch_size,
-                    mesh.world_size, mesh.rank)
+                    mesh.n_data, mesh.data_rank)
             return train_step_head(cfg, state, x, mesh=mesh), (gt_bbox,
                                                                gt_count)
     elif with_detection:
@@ -306,30 +329,42 @@ def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
     return step_fn
 
 
-def make_eval_step(cfg: SpairConfig, eager: bool = False):
+def make_eval_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
+                   eager: bool = False):
     """Returns eval(params, x, step, generator) -> (loss, aux): ``forward``
     without gradients.
+
+    With ``mesh`` (the JAX ``make_eval_step(cfg, mesh)``), x is this rank's
+    slice of the global batch (its data rank's, ``shard_batch``) and the
+    generator is in the same state on every rank: each rank draws the
+    global batch's noise and keeps its slice, runs the inference's model
+    axis as the train step does, and returns what one process returns for
+    the global batch: the loss and the loss terms summed over the data
+    ranks (``reduce_metrics``' rule) and every batched output gathered
+    over them, in one all-gather each.
 
     On a CUDA device it is captured, as the JAX package jits it: one CUDA
     graph for each shape of x, with x and the step (a tensor, or a number
     filled into the graph's step before each replay) as static inputs and
     the generator of the first call registered with the graph
-    (``parallel/captured.py``); with ``render_topk``, segments around the
-    render's branch (``captured.SegmentedForward``), and the returned
-    function's ``branches`` counts the branch each call took (None
-    otherwise). A call with another generator, or other parameters,
-    raises. It stays eager where ``forward_eager_reason`` gives a reason
-    (the CPU, the NaN hunter), decided at the first call, or when ``eager``
-    is set."""
+    (``parallel/captured.py``; with ``mesh`` the collectives inside it);
+    with ``render_topk``, segments around the render's branch
+    (``captured.SegmentedForward``), and the returned function's
+    ``branches`` counts the branch each call took (None otherwise). A call
+    with another generator, or other parameters, raises. It stays eager
+    where ``forward_eager_reason`` gives a reason (the CPU, the NaN hunter),
+    decided at the first call, or when ``eager`` is set."""
     branches = Branches() if topk_branches(cfg) else None
 
     @torch.no_grad()
     def head(params, x, step, generator):
-        return forward_head(params, cfg, x, step, generator)
+        return _head(params, cfg, x, step, generator, None, mesh)
 
     @torch.no_grad()
     def tail(params, carry, topk):
-        return forward_tail(params, cfg, carry, topk)
+        loss, aux = forward_tail(params, cfg, carry, topk,
+                                 carry["batch_share"])
+        return (loss, aux) if mesh is None else _gather_eval(mesh, aux)
 
     def predicate(carry):
         return carry["live_at_most_k"]
@@ -366,3 +401,14 @@ def make_eval_step(cfg: SpairConfig, eager: bool = False):
         return program(params, x, step)
     step_fn.branches = branches
     return step_fn
+
+
+def _gather_eval(mesh: Mesh, aux):
+    """(loss, aux) of the global batch from this data rank's ``aux``: the
+    loss terms reduced as the train step's metrics are (``losses/*``
+    summed), the loss their total, every batched output gathered."""
+    terms = reduce_metrics(mesh, aux["losses"])
+    batched = [k for k, v in aux.items() if torch.is_tensor(v) and v.ndim]
+    out = dict(aux, losses=terms)
+    out.update(zip(batched, gather_batch(mesh, [aux[k] for k in batched])))
+    return terms["losses/total"], out

@@ -117,7 +117,7 @@ from spair_pytorch_tpu_torch.parallel import (create_train_state,
                                               make_train_step)
 from spair_pytorch_tpu_torch.parallel.mesh import make_mesh, replicate
 from spair_pytorch_tpu_torch.train import data_config
-cfg = config_from_json(sys.argv[1])
+cfg = config_from_json(sys.argv[2])
 live, real = [], spair.render_objects
 
 
@@ -143,39 +143,45 @@ try:
                 "grads": [p.grad for p in state.model.parameters()],
                 "metrics": metrics, "live": live,
                 "branches": None if step.branches is None
-                else step.branches.last}, sys.argv[2])
+                else step.branches.last}, sys.argv[1])
 finally:
     mesh.close()
 """
+
+
+def launch(tmp_path, worker, world, *args, timeout=120):
+    """``python -c worker OUT *args`` as ``world`` gloo ranks on a free
+    localhost port, OUT each rank's own file under ``tmp_path``: what each
+    rank saved there."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS="2")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", worker, str(tmp_path / f"rank{rank}.pt"),
+             *map(str, args)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    for proc in procs:
+        _, err = proc.communicate(timeout=timeout)
+        assert proc.returncode == 0, err
+    return [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)]
 
 
 def two_process_step(tmp_path, cfg, bias=0.0):
     """One step of two gloo ranks of 2 scenes each, the presence bias
     shifted by ``bias``: what each rank saved."""
     from spair_pytorch_tpu_torch.config import config_to_json
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    procs = []
-    for rank in range(2):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
-                   LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
-                   MASTER_PORT=str(port), OMP_NUM_THREADS="2")
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", WORKER, config_to_json(cfg),
-             str(tmp_path / f"rank{rank}.pt"), str(bias)], cwd=ROOT,
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True))
-    for proc in procs:
-        _, err = proc.communicate(timeout=120)
-        assert proc.returncode == 0, err
-    return [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    return launch(tmp_path, WORKER, 2, config_to_json(cfg), bias)
 
 
 def assert_ranks_equal_one_process(ranks, want, want_m):
     """Each rank's summed gradients, parameters after Adam and reduced
-    metrics against one process's, within REL; both ranks' parameters
-    equal."""
+    metrics against one process's, within REL; every rank's parameters
+    equal bit for bit."""
     grads = [p.grad for p in want.model.parameters()]
     params = list(want.model.parameters())
     for got in ranks:
@@ -190,8 +196,9 @@ def assert_ranks_equal_one_process(ranks, want, want_m):
             err = abs(float(got["metrics"][k]) - float(v)) / max(
                 abs(float(v)), 1e-6)
             assert err < REL, (k, float(got["metrics"][k]), float(v))
-    for a, b in zip(ranks[0]["params"], ranks[1]["params"]):
-        assert torch.equal(a, b)
+    for other in ranks[1:]:
+        for a, b in zip(ranks[0]["params"], other["params"]):
+            assert torch.equal(a, b)
 
 
 def test_two_process_step_equals_the_one_process_step(tmp_path):

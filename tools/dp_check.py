@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Data-parallel training across ranks against one process, and its
-steady-state time.
+"""Data-parallel training across ranks, and the mesh's 'model' axis,
+against one process, and its steady-state time.
 
 Run once under ``torchrun``: every rank trains the ROADMAP main path
 (``--preset`` paper128, wavefront, gate 0.01, global batch ``--batch``)
 through ``make_train_step(cfg, mesh, datagen=...)`` for ``--steps`` steps,
-one step a call, from a state ``replicate`` gave every rank. On the card
-the step is captured as a CUDA graph with NCCL's collectives inside it
+one step a call, from a state ``replicate`` gave every rank.
+``--n-model M`` lays the world out as a (data, model) mesh of M ranks to a
+model group (``make_mesh(n_model=M)``): each model group trains on one
+data slice with the inference's cells split over its ranks; ``--mode
+independent`` runs independent inference instead of the wavefront. On the
+card the step is captured as a CUDA graph with NCCL's collectives inside it
 (``parallel/captured.py``); ``--eager`` runs the eager mesh step instead.
 Rank 0 writes its final parameters and the logged losses (each step's
 reduced over the ranks, as the mesh logs it) to ``--out``. Every rank
@@ -23,13 +27,14 @@ and the eager mesh run), it also says whether they agree bit for bit.
 
 ``--time K`` measures the steady state instead: every rank runs calls of
 K steps (``steps_per_call=K``) and, after the first call, CUDA events time
-``--calls`` more on each rank (3; 1 keeps the eager step's run short). The mesh step is timed in turns with the
-plain step at the rank's own batch (mesh, plain, plain, mesh), each rank's
-plain step on its own card with no collective, and one flat all-reduce
-of the gradients' size is timed alone; rank 0 prints one JSON line with
-each rank's ms/step of each, and the img/s of the global batch at the
-slowest rank's mean mesh ms/step, beside the card's name and power
-limit.
+``--calls`` more on each rank (3; 1 keeps the eager step's run short). The
+mesh step is timed in turns with another step (mesh, other, other, mesh):
+with M = 1 the plain step at the rank's own batch, each rank's plain step
+on its own card with no collective; with M > 1 the data-only mesh of the
+same world at the same global batch. One flat all-reduce of the
+gradients' size is timed alone; rank 0 prints one JSON line with each
+rank's ms/step of each, and the img/s of the global batch at the slowest
+rank's mean mesh ms/step, beside the card's name and power limit.
 
 TF32 is off. ``--dtype float32`` (the default) makes the comparison tight;
 ``--dtype bfloat16`` is the main path's compute type.
@@ -38,6 +43,10 @@ TF32 is off. ``--dtype float32`` (the default) makes the comparison tight;
     torchrun --nproc-per-node 4 tools/dp_check.py --eager --out runs/e4.pt
     python tools/dp_check.py --compare runs/dp4.pt runs/e4.pt
     torchrun --nproc-per-node 4 tools/dp_check.py --time 10 \\
+        --dtype bfloat16 --batch 512
+    torchrun --nproc-per-node 4 tools/dp_check.py --n-model 2 --out m22.pt
+    python tools/dp_check.py --compare m22.pt
+    torchrun --nproc-per-node 4 tools/dp_check.py --n-model 2 --time 10 \\
         --dtype bfloat16 --batch 512
 """
 
@@ -58,6 +67,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from spair_pytorch_tpu_torch.config import PRESETS  # noqa: E402
 from spair_pytorch_tpu_torch.data import digit_bank, resolve_source  # noqa
+from spair_pytorch_tpu_torch.parallel.captured import COUNTED  # noqa: E402
 from spair_pytorch_tpu_torch.parallel.mesh import (make_mesh,  # noqa: E402
                                                    replicate)
 from spair_pytorch_tpu_torch.parallel.train_step import (  # noqa: E402
@@ -82,11 +92,15 @@ def fresh_state(cfg, mesh, device):
 
 
 def run(cfg, steps, mesh, device, eager=False):
-    """(state, each step's logged loss as a float)."""
+    """(state, each step's logged loss as a float, the K1-K4 launches of
+    the run, counted over a captured step's replays)."""
+    for w in COUNTED:
+        w.launches = 0
     state = fresh_state(cfg, mesh, device)
     step = make_step(cfg, mesh, device, eager)
     losses = [step(state)[1]["losses/total"] for _ in range(steps)]
-    return state, [float(x) for x in losses]
+    return (state, [float(x) for x in losses],
+            [w.launches for w in COUNTED])
 
 
 def adam_on_device(mesh, state):
@@ -169,27 +183,35 @@ def main(argv=None):
                    help="time calls of K steps instead of checking")
     p.add_argument("--calls", type=int, default=3)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--n-model", type=int, default=1,
+                   help="ranks to a model group: a (data, model) mesh")
+    p.add_argument("--mode", default="wavefront",
+                   choices=["wavefront", "independent"])
     args = p.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = PRESETS[args.preset](batch_size=args.batch,
-                              inference_mode="wavefront",
+                              inference_mode=args.mode,
                               compute_dtype=args.dtype,
                               pres_gate_threshold=0.01)
     captured = not args.eager and torch.device(args.device).type == "cuda"
     arm = "captured" if captured else "eager"
     if args.compare is not None:
         return compare(cfg, args)
-    mesh = make_mesh(args.device)
+    mesh = make_mesh(args.device, n_model=args.n_model)
     try:
         if args.time:
-            local = dataclasses.replace(
-                cfg, batch_size=args.batch // mesh.world_size)
-            ms = {"mesh": [], "plain": []}
-            for name in ("mesh", "plain", "plain", "mesh"):
+            if mesh.n_model == 1:  # each rank's plain step at its batch
+                other, other_cfg, other_mesh = "plain", dataclasses.replace(
+                    cfg, batch_size=args.batch // mesh.world_size), None
+            else:  # the data-only mesh of the same world
+                other, other_cfg = "data_mesh", cfg
+                other_mesh = make_mesh(args.device)
+            ms = {"mesh": [], other: []}
+            for name in ("mesh", other, other, "mesh"):
                 ms[name].append(timed(
-                    cfg if name == "mesh" else local,
-                    mesh if name == "mesh" else None, mesh.device,
+                    cfg if name == "mesh" else other_cfg,
+                    mesh if name == "mesh" else other_mesh, mesh.device,
                     args.time, args.calls, args.eager))
             reduce_ms, mib = all_reduce_ms(cfg, mesh.device)
             every = [None] * mesh.world_size
@@ -197,35 +219,43 @@ def main(argv=None):
             if mesh.is_main:
                 slowest = max(sum(m["mesh"]) / 2 for m, _ in every)
                 print(json.dumps({
-                    "preset": args.preset, "dtype": args.dtype, "arm": arm,
-                    "world": mesh.world_size, "global_batch": args.batch,
-                    "per_rank_batch": local.batch_size,
+                    "preset": args.preset, "mode": args.mode,
+                    "dtype": args.dtype, "arm": arm,
+                    "world": mesh.world_size, "n_model": mesh.n_model,
+                    "global_batch": args.batch,
+                    "per_rank_batch": args.batch // mesh.n_data,
                     "steps_per_call": args.time, "calls": args.calls,
                     "ms_per_step_by_rank": [m["mesh"] for m, _ in every],
-                    "plain_ms_per_step_by_rank": [m["plain"]
-                                                  for m, _ in every],
+                    f"{other}_ms_per_step_by_rank": [m[other]
+                                                     for m, _ in every],
                     "all_reduce_ms_by_rank": [r for _, r in every],
                     "grad_mib": mib,
                     "img_per_s": args.batch / slowest * 1e3,
                     "card": card(mesh.device)}))
             return 0
-        state, losses = run(cfg, args.steps, mesh, mesh.device, args.eager)
+        state, losses, launches = run(cfg, args.steps, mesh, mesh.device,
+                                      args.eager)
         params = [t.detach().cpu() for t in state.model.parameters()]
-        ok = [None] * mesh.world_size
-        dist.all_gather_object(ok, adam_on_device(mesh, state))
+        every = [None] * mesh.world_size
+        dist.all_gather_object(every, (adam_on_device(mesh, state),
+                                       launches))
+        ok = [good for good, _ in every]
         if mesh.is_main:
-            print(f"{arm} mesh step, world {mesh.world_size}: Adam "
+            print(f"{arm} mesh step, world {mesh.world_size} (data "
+                  f"{mesh.n_data}, model {mesh.n_model}): Adam "
                   f"capturable with its step counts on the device after "
-                  f"replicate, by rank: {ok}")
+                  f"replicate, by rank: {ok}; K1-K4 launches of the "
+                  f"{args.steps} steps by rank: {[n for _, n in every]}")
             torch.save({"params": params, "losses": losses, "arm": arm,
-                        "world": mesh.world_size}, args.out)
+                        "world": mesh.world_size, "n_model": mesh.n_model},
+                       args.out)
         return 0 if all(ok) else 1
     finally:
         mesh.close()
 
 
 def compare(cfg, args):
-    state, losses = run(cfg, args.steps, None, args.device)
+    state, losses, _ = run(cfg, args.steps, None, args.device)
     params = [w.detach().cpu() for w in state.model.parameters()]
     scale = max(abs(x) for x in losses)
     runs = [torch.load(f) for f in args.compare]
@@ -239,9 +269,10 @@ def compare(cfg, args):
         good = (len(got["losses"]) == len(losses) and loss_err <= LOSS_BAR
                 and param_err <= PARAM_BAR)
         ok = ok and good
-        print(f"{args.steps} steps of {args.preset} ({args.dtype}, global "
-              f"batch {args.batch}): the {got['arm']} mesh step of world "
-              f"{got['world']} against one process: losses "
+        print(f"{args.steps} steps of {args.preset} ({args.mode}, "
+              f"{args.dtype}, global batch {args.batch}): the {got['arm']} "
+              f"mesh step of world {got['world']} (model axis "
+              f"{got.get('n_model', 1)}) against one process: losses "
               f"{got['losses'][0]:.3f} -> {got['losses'][-1]:.3f} against "
               f"{losses[0]:.3f} -> {losses[-1]:.3f}, worst step diff "
               f"{loss_err:.3e} of max |loss| (bar {LOSS_BAR:g}); worst "
