@@ -10,14 +10,16 @@ CUDA graph against the eager step, the forward programs (detector,
 eval step, evaluate, calibrate) captured against eager, and the render_topk
 presets' train step, eval step and evaluate captured as segments around the
 render's top-K branch against eager, and the data-parallel step and the
-split refiner captured against eager, and the (data, model) mesh at
-world size 1 with its NCCL subgroups captured, on one CUDA card, with
+split refiner captured against eager, the (data, model) mesh at
+world size 1 with its NCCL subgroups captured, and the windowed matmul
+paste's ablation (K5) through its entry point, on one CUDA card, with
 random weights from the preset's seed:
 
   1. device     the card's name and power limit (nvidia-smi);
   2. build      compiles csrc/composite_fwd.cu (K1, and K3 as its banded
-                instantiation) and csrc/composite_bwd.cu (K2, and K4 as
-                its launch with a band), one nvcc each, started together;
+                instantiation), csrc/composite_bwd.cu (K2, and K4 as
+                its launch with a band) and csrc/kernel_anatomy.cu (K5),
+                one nvcc each, started together;
                 ptxas's registers, spills and stack for every
                 instantiation;
   3. kernel     the composite kernel against its plain PyTorch version at
@@ -238,15 +240,33 @@ random weights from the preset's seed:
                 all-reduce) inside one capture, replayed. Meshes of 2 and
                 4 ranks to a model group need several cards:
                 tools/dp_check.py --n-model.
+ 22. anatomy    the windowed matmul paste of the JAX package's
+                benchmarks/kernel_anatomy.py, K5 (csrc/kernel_anatomy.cu,
+                built in phase 2, bf16 tensor cores), through its entry
+                point, python -m spair_pytorch_tpu_torch.benchmarks.
+                kernel_anatomy: (a) each of the five variants (base,
+                hoisted, nobuild, nomatmul, noaccum) against its plain
+                version at paper shapes (B=32, N=121, 28x28, 128x128, win
+                64) on 8 seeds' inputs, at 1e-6 with t's f32 sums
+                rounded toward zero as the tensor cores round them and at
+                5e-3 rounded to nearest, hoisted against base at 1e-6, and
+                a control that must fail 1e-6 (the plain base with t kept
+                in f32); base (bf16 operands) and K1 with bf16
+                glimpses against the f32 composite at the bf16 bar; (b)
+                the entry point at B=32 and B=128, each variant timed over
+                a captured graph of 30 launches (best of 3 replays), the
+                shares, each variant's bound, K1 on the same glimpses,
+                K5's launches over the replays; the plain base timed at
+                both batches. Run before the failed-capture checks.
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
 cuDNN convs in full f32), so kernels and plain versions are compared on the
 same arithmetic. The last two lines are a JSON summary of the kernels and
 the result line {"ok": true, "device": {...}}. A kernel's "launches" there
-are its own path's, K1/K2 from phase 9 and K3/K4 from phase 12, and its
-"path_launches" those of phase 15's to phase 21's paths, each read from
-its own run. Launches of a captured step or program are counted over its
-replays.
+are its own path's, K1/K2 from phase 9, K3/K4 from phase 12 and K5 from
+phase 22's entry-point runs, and its "path_launches" those of phase 15's
+to phase 21's paths, each read from its own run. Launches of a captured
+step or program are counted over its replays.
 
     python3 chip_smoke.py              # on a machine with a CUDA card
 """
@@ -3393,6 +3413,158 @@ def model_axis_phase(card, dev):
     return launches
 
 
+# phase 22: the windowed matmul paste of the JAX package's
+# benchmarks/kernel_anatomy.py (K5), its five variants on bf16 tensor cores
+# Each variant's kernel against its plain version with t's f32 sums rounded
+# toward zero, as the tensor cores round them (t_sum='toward_zero'); the
+# hoisted kernel against the base kernel. The kernel rounds the weights and
+# t to bf16 where the plain version does, and a hat row has at most two
+# nonzeros, so each sum is exact before its one rounding: the card read at
+# most 1.3e-7. The control, the plain base with t kept in f32, reads ~1e-3.
+ANATOMY_BAR = 1e-6
+# against the plain version that rounds t's sums to nearest, as the JAX
+# package's product does: where the two roundings straddle a bf16 rounding
+# boundary, t's bf16 rounding flips (the card read at most 2.6e-4, 4 pixels
+# in 524288); one flip moves a pixel by at most a bf16 ulp's share of it
+ANATOMY_NEAREST_BAR = 5e-3
+ANATOMY_SEEDS = range(8)  # the inputs' seeds held at B=32
+ANATOMY_K = 30      # launches in a captured graph (the JAX script's --k)
+ANATOMY_BATCHES = (32, 128)
+
+
+def anatomy_phase(K, card, dev):
+    """Phase 22: (a) each variant's kernel against its plain version at
+    paper shapes (B=32, N=121, 28x28, 128x128, win 64; the entry point's
+    inputs from each of ANATOMY_SEEDS; t's sums rounded toward zero, as
+    the tensor cores round them, and to nearest), the hoisted kernel
+    against the base kernel, and the control that must fail the first bar
+    (the plain base with t kept in f32); base (bf16) and K1 with bf16 glimpses
+    against the f32 composite_plain truth; (b) the
+    entry point, python -m spair_pytorch_tpu_torch.benchmarks.
+    kernel_anatomy, at B=32 and B=128 (its five lines and JSON line), with
+    the kernel's launches counted from 0 over its graphs' replays; the
+    shares and each variant's bound; the plain base timed at both batches
+    (the kernels line takes B=128's).
+    Returns K5's row of the kernels line."""
+    from spair_pytorch_tpu_torch.benchmarks import kernel_anatomy as A
+    t_phase = time.perf_counter()
+    cases = [(v, "toward_zero", ANATOMY_BAR) for v in A.VARIANTS] + [
+        ("hoisted_vs_base", None, ANATOMY_BAR)] + [
+        (v, "nearest", ANATOMY_NEAREST_BAR) for v in A.VARIANTS]
+    worst = {(v, t): [0.0, 0.0, 0] for v, t, _ in cases}
+    control, errs = math.inf, []
+
+    def hold(key, got, want):
+        """The worst rel err of each output and the pixels off by more than
+        1e-5 of their output's scale, over the seeds."""
+        rels, err = rel_err(got, want)
+        off = sum(int(((x - y).abs() > 1e-5 * y.abs().max()).sum())
+                  for x, y in zip(got, want))
+        w = worst[key]
+        worst[key] = [max(w[0], rels[0]), max(w[1], rels[1]), max(w[2], off)]
+        return err
+
+    with torch.no_grad():
+        for seed in ANATOMY_SEEDS:
+            color, alpha, imp, boxes, hw, win = A.paper_inputs(B, seed, dev)
+            g = A.pack(color, alpha, imp).to(torch.bfloat16).contiguous()
+            weights = A.hoisted_weights(boxes, hw, (OH, OW), win)
+            outs = {}
+            for v in A.VARIANTS:
+                w = weights if v == "hoisted" else (None, None)
+                outs[v] = A.kernel_anatomy(v, g, boxes, hw, win, *w)
+                for t_sum in ("toward_zero", "nearest"):
+                    err = hold((v, t_sum), outs[v], A.kernel_anatomy_plain(
+                        v, g, boxes, hw, win, *w, t_sum=t_sum))
+                    if t_sum == "toward_zero":
+                        errs.append(err)
+            hold(("hoisted_vs_base", None), outs["hoisted"], outs["base"])
+            # the control: a base that kept t in f32 must fail the bar
+            rels, _ = rel_err(outs["base"], A.kernel_anatomy_plain(
+                "base", g, boxes, hw, win, t_sum="toward_zero",
+                round_t=False))
+            control = min(control, max(rels))
+    for v, t_sum, bar in cases:
+        rel_num, rel_den, off = worst[(v, t_sum)]
+        what = ("hoisted kernel against base kernel" if t_sum is None else
+                f"{v}: kernel against plain, t's sums rounded "
+                f"{t_sum.replace('_', ' ')}")
+        phase("anatomy", f"{what}, B={B}, seeds {ANATOMY_SEEDS.start}-"
+                         f"{ANATOMY_SEEDS.stop - 1}: worst rel err num "
+                         f"{rel_num:.3e}, den {rel_den:.3e} (bar {bar:g}); "
+                         f"at most {off} pixels off by more than 1e-5 of "
+                         f"scale")
+        if not max(rel_num, rel_den) < bar:
+            raise AssertionError(f"anatomy case {what} disagrees: "
+                                 f"{rel_num}, {rel_den}")
+    phase("anatomy", f"control, base kernel against the plain base with t "
+                     f"kept in f32: least rel err over the seeds "
+                     f"{control:.3e}, must be at or above the bar "
+                     f"{ANATOMY_BAR:g}")
+    if not control >= ANATOMY_BAR:
+        raise AssertionError(f"the anatomy bar {ANATOMY_BAR:g} does not tell "
+                             f"t kept in f32 apart: {control}")
+    with torch.no_grad():
+        color, alpha, imp, boxes, hw, win = A.paper_inputs(B, 7, dev)
+        g = A.pack(color, alpha, imp).to(torch.bfloat16).contiguous()
+        truth = K.composite_plain(color, alpha, imp, boxes, hw)
+        check("anatomy", f"base B={B} (bf16 operands) against the f32 "
+                         f"composite", BF16_BAR,
+              A.kernel_anatomy("base", g, boxes, hw, win), truth)
+        bf = [t.to(torch.bfloat16) for t in (color, alpha, imp)]
+        check("anatomy", f"K1 B={B}, bf16 glimpses, against the f32 "
+                         f"composite", BF16_BAR,
+              K.composite_forward(*bf, boxes, hw, win), truth)
+
+    lines = {}
+    A.kernel_anatomy.launches = 0
+    for b in ANATOMY_BATCHES:
+        lines[b] = A.main(["--batch", str(b), "--k", str(ANATOMY_K)])
+    launches = A.kernel_anatomy.launches
+    want = len(ANATOMY_BATCHES) * len(A.VARIANTS) * (1 + 4 * ANATOMY_K)
+    phase("anatomy", f"the entry point at B={ANATOMY_BATCHES}: {launches} "
+                     f"kernel launches counted over the graphs' replays "
+                     f"(each variant one eager call and 4 replays of "
+                     f"{ANATOMY_K}: {want})")
+    if launches != want:
+        raise AssertionError(f"K5 launched {launches} times, not {want}")
+    for b, line in lines.items():
+        ms, bounds = line["ms"], line["bound_ms"]
+        if not all(math.isfinite(x) and x > 0 for x in ms.values()):
+            raise AssertionError(f"anatomy times at B={b}: {ms}")
+        for v in A.VARIANTS:
+            phase("anatomy", f"{v} B={b}: {ms[v]:.4f} ms, bound "
+                             f"{bounds[v]:.4f} ms ({line['bound_by'][v]}), "
+                             f"{bounds[v] / ms[v]:.1%} of it ({card})")
+        phase("anatomy", f"B={b} shares (ms): " + ", ".join(
+            f"{k} {x:.4f}" for k, x in line["shares_ms"].items())
+            + "; K1 (composite_forward) on the same glimpses: " + ", ".join(
+                f"{k} {x:.4f}" for k, x in line["composite_forward_ms"]
+                .items()) + f" ms ({card})")
+
+    plain_ms = {}
+    for b in ANATOMY_BATCHES:
+        color, alpha, imp, boxes, hw, win = A.paper_inputs(b, 7, dev)
+        g = A.pack(color, alpha, imp).to(torch.bfloat16).contiguous()
+        with torch.no_grad():
+            plain_ms[b] = cuda_ms(lambda: A.kernel_anatomy_plain(
+                "base", g, boxes, hw, win), 3, warmup=1)
+        phase("anatomy", f"plain base B={b}: {plain_ms[b]:.4f} ms against "
+                         f"the kernel's {lines[b]['ms']['base']:.4f} "
+                         f"({card})")
+    b = ANATOMY_BATCHES[-1]
+    line = lines[b]
+    phase("anatomy", f"phase 22 in {time.perf_counter() - t_phase:.1f} s")
+    return {"name": "kernel_anatomy", "route": "cuda",
+            "source": "spair_pytorch_tpu_torch/csrc/kernel_anatomy.cu",
+            "replaces": "benchmarks/kernel_anatomy.py:43",
+            "launches": launches, "max_abs_err": max(errs),
+            "ms": line["ms"]["base"], "plain_ms": plain_ms[b],
+            "bound_ms": line["bound_ms"]["base"],
+            "bound_by": line["bound_by"]["base"], "library_ms": None,
+            "path_launches": {}}
+
+
 def failed_capture_phase(dev):
     """Phases 20(c), 17(j) and 18(d), last in the run since each leaves a
     failed capture behind: a host read injected into the captured mesh
@@ -3689,6 +3861,9 @@ def main():
 
     # 21. the mesh's 'model' axis at world 1 and NCCL subgroups captured
     model_axis_k = model_axis_phase(card, dev)
+
+    # 22. the windowed matmul paste (K5) through its entry point
+    anatomy_row = anatomy_phase(K, card, dev)
     failed_capture_phase(dev)
     # each path's own launches, from its own run with the counts set to 0
     # just before it: `launches` is the main path's (phase 9, K1/K2) or the
@@ -3728,7 +3903,8 @@ def main():
          "ms": same[k], "plain_ms": same[f"plain {k}"],
          "bound_ms": same["bound"][k][0], "bound_by": same["bound"][k][1],
          "library_ms": None, "path_launches": path}
-        for (name, source, k, where, n, err), path in zip(rows, paths)]}))
+        for (name, source, k, where, n, err), path in zip(rows, paths)]
+        + [anatomy_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

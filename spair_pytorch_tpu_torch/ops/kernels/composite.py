@@ -13,7 +13,10 @@ plain PyTorch, for the tests; nothing on a path calls it.
 
 The same two kernels, launched with a row band, are ``ops/kernels/
 composite_v3.py``'s K3 and K4 (``_launch_forward`` / ``_launch_backward``
-take the band). They are compiled with ``nvcc`` at first use into
+take the band). ``csrc/kernel_anatomy.cu``, the windowed matmul paste of
+``benchmarks/kernel_anatomy.py`` (K5), is built beside them and launched by
+``benchmarks/kernel_anatomy.py::kernel_anatomy``. They are compiled with
+``nvcc`` at first use into
 the build directory (``utils/compile_cache.py``: the package's ``_build/``
 unless ``SPAIR_COMPILE_CACHE`` says otherwise), one library per source,
 named by the hash of the source and the shared header (so an edited source
@@ -41,7 +44,7 @@ from spair_pytorch_tpu_torch.utils.compile_cache import (
 _EPS = 1e-9
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("composite_fwd", "composite_bwd")}
+           for name in ("composite_fwd", "composite_bwd", "kernel_anatomy")}
 HEADERS = (_PKG / "csrc" / "composite_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -341,6 +344,9 @@ def load_library(name: str) -> ctypes.CDLL:
             "spair_composite_bwd": ([ptr] * 9 + [i32] * 8 + [ptr, ptr]
                                     + [i32] * 4 + [ptr], i32),
             "spair_composite_bwd_smem": ([i32] * 7, ctypes.c_size_t)},
+        "kernel_anatomy": {
+            "spair_kernel_anatomy": ([ptr] * 6 + [i32] * 9 + [f32, ptr], i32),
+            "spair_kernel_anatomy_smem": ([i32] * 4, ctypes.c_size_t)},
     }
     for fn, (argtypes, restype) in signatures[name].items():
         getattr(lib, fn).argtypes = argtypes

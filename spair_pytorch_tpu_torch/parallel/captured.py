@@ -158,17 +158,17 @@ def _warm_up(device, fn):
     return out
 
 
-def _capture(graph, fn, device, generator=None, pool=None):
+def _capture(graph, fn, device, generator=None, pool=None, counted=COUNTED):
     """``fn()`` captured into ``graph`` on the side stream, ``generator``
     registered with it: (fn's result, the graph's static outputs; the
-    launches of one replay, per COUNTED wrapper). The wrappers count
-    Python calls, so what the capture counted is taken back: it launched
-    nothing on the card. A capture that raises is not retried.
+    launches of one replay, per wrapper of ``counted``). The wrappers
+    count Python calls, so what the capture counted is taken back: it
+    launched nothing on the card. A capture that raises is not retried.
 
     The garbage collector is off during the capture (``torch.cuda.graph``
     collects just before it): a graph it freed mid-capture, one left in a
     reference cycle, would invalidate the capture."""
-    before = [w.launches for w in COUNTED]
+    before = [w.launches for w in counted]
     if generator is not None:
         graph.register_generator_state(generator)
     collecting = gc.isenabled()
@@ -179,15 +179,15 @@ def _capture(graph, fn, device, generator=None, pool=None):
     finally:
         if collecting:
             gc.enable()
-        per_replay = [w.launches - n for w, n in zip(COUNTED, before)]
-        for w, n in zip(COUNTED, before):
+        per_replay = [w.launches - n for w, n in zip(counted, before)]
+        for w, n in zip(counted, before):
             w.launches = n
     return out, per_replay
 
 
-def _replayed(per_replay):
-    """Counts one replay's launches on each COUNTED wrapper."""
-    for w, n in zip(COUNTED, per_replay):
+def _replayed(per_replay, counted=COUNTED):
+    """Counts one replay's launches on each wrapper of ``counted``."""
+    for w, n in zip(counted, per_replay):
         w.launches += n
 
 

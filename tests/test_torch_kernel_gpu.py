@@ -79,6 +79,133 @@ def test_kernel_all_gated(cuda):
     np.testing.assert_allclose(den.cpu().numpy(), 9e-9, rtol=1e-6)
 
 
+# K5, the windowed matmul paste of benchmarks/kernel_anatomy.py: each
+# variant against its plain version with t's f32 sums rounded toward zero,
+# as the tensor cores round them, at 1e-6 of each output's own scale: the
+# kernel rounds the weights and t to bf16 where the plain version does, and
+# a hat row has at most two nonzeros, so each sum is exact before its one
+# rounding (the card reads ~1e-7, chip_smoke.py phase 22). The plain base
+# with t kept in f32 reads ~1e-3 against it, which this bar must refuse.
+# Against the plain version that rounds to nearest, 5e-3: there a few t
+# sums straddle a bf16 rounding boundary and t's bf16 rounding flips.
+ANATOMY_BAR = 1e-6
+ANATOMY_NEAREST_BAR = 5e-3
+ANATOMY_SHAPES = {  # (B, N, C, glimpse, canvas, window, max scale)
+    "paper": (4, 121, 1, 28, (128, 128), 64, 48 / 128),
+    "c3": (2, 9, 3, 14, (64, 64), 32, 0.3),
+    "win_eq_h": (2, 40, 1, 28, (128, 128), 128, 48 / 128),
+    # the constant box reaches rows 0-7 here: noaccum adds something
+    "small": (2, 12, 1, 8, (16, 32), 16, 0.5),
+}
+
+
+def anatomy_inputs(shape, dev, seed=0):
+    from spair_pytorch_tpu_torch.benchmarks import kernel_anatomy as A
+    b, n, c, o, hw, win, max_scale = ANATOMY_SHAPES[shape]
+    rng = np.random.RandomState(seed)
+
+    def u(*s, lo=0.0, hi=1.0):
+        return torch.as_tensor(rng.uniform(lo, hi, s).astype("f"),
+                               device=dev)
+    g = A.pack(u(b, n, c, o, o), u(b, n, 1, o, o),
+               u(b, n, 1, o, o, lo=0.01)).to(torch.bfloat16).contiguous()
+    boxes = torch.cat([u(b, n, 2, lo=0.05, hi=0.95),
+                       u(b, n, 2, lo=0.05, hi=max_scale)], -1).contiguous()
+    return g, boxes, hw, win, c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(ANATOMY_SHAPES))
+@pytest.mark.parametrize("variant", ["base", "hoisted", "nobuild",
+                                     "nomatmul", "noaccum"])
+def test_anatomy_kernel_matches_plain(cuda, variant, shape):
+    from spair_pytorch_tpu_torch.benchmarks import kernel_anatomy as A
+    g, boxes, hw, win, c = anatomy_inputs(shape, cuda)
+    w = A.hoisted_weights(boxes, hw, g.shape[2:3] + (g.shape[3] // (c + 2),),
+                          win) if variant == "hoisted" else (None, None)
+    before = A.kernel_anatomy.launches
+    got = A.kernel_anatomy(variant, g, boxes, hw, win, *w, channels=c)
+    torch.cuda.synchronize()
+    assert A.kernel_anatomy.launches == before + 1
+    b = g.shape[0]
+    assert got[0].shape == (b, c) + hw and got[1].shape == (b, 1) + hw
+    for t_sum, bar in (("toward_zero", ANATOMY_BAR),
+                       ("nearest", ANATOMY_NEAREST_BAR)):
+        want = A.kernel_anatomy_plain(variant, g, boxes, hw, win, *w,
+                                      channels=c, t_sum=t_sum)
+        for x, y in zip(got, want):
+            scale = float(y.abs().max())
+            err = float((x - y).abs().max())
+            assert (err / scale if scale else err) < bar, (t_sum, err, scale)
+
+
+@pytest.mark.gpu
+def test_anatomy_hoisted_kernel_matches_base_kernel(cuda):
+    from spair_pytorch_tpu_torch.benchmarks import kernel_anatomy as A
+    g, boxes, hw, win, c = anatomy_inputs("paper", cuda, seed=1)
+    base = A.kernel_anatomy("base", g, boxes, hw, win)
+    hoisted = A.kernel_anatomy("hoisted", g, boxes, hw, win,
+                               *A.hoisted_weights(boxes, hw, (28, 28), win))
+    assert rel(hoisted, base) < ANATOMY_BAR
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(ANATOMY_SHAPES))
+def test_anatomy_bar_refuses_t_kept_in_f32(cuda, shape):
+    """The control: the base kernel against the plain base that keeps t in
+    f32 between the products fails the bar the kernel is held to."""
+    from spair_pytorch_tpu_torch.benchmarks import kernel_anatomy as A
+    g, boxes, hw, win, c = anatomy_inputs(shape, cuda)
+    got = A.kernel_anatomy("base", g, boxes, hw, win, channels=c)
+    unrounded = A.kernel_anatomy_plain("base", g, boxes, hw, win,
+                                       channels=c, t_sum="toward_zero",
+                                       round_t=False)
+    assert rel(got, unrounded) >= ANATOMY_BAR
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["dtype", "device", "odd_glimpse", "width",
+                                 "window", "strided"])
+def test_anatomy_wrapper_refuses(cuda, bad):
+    from spair_pytorch_tpu_torch.benchmarks import kernel_anatomy as A
+    g, boxes, hw, win, c = anatomy_inputs("c3", cuda)
+    args = dict(variant="base", g=g, boxes=boxes, image_hw=hw, win=win,
+                channels=c)
+    if bad == "dtype":
+        args["g"] = g.float()
+    elif bad == "device":
+        args["boxes"] = boxes.cpu()
+    elif bad == "odd_glimpse":  # 5 planes of 13 columns
+        args["g"] = g[..., :65].contiguous()
+    elif bad == "width":
+        args["image_hw"] = (64, 48)
+    elif bad == "window":
+        args["win"] = 24
+    else:
+        args["g"] = torch.empty_like(g).transpose(0, 1).contiguous() \
+            .transpose(0, 1)
+    before = A.kernel_anatomy.launches
+    with pytest.raises((TypeError, ValueError)):
+        A.kernel_anatomy(**args)
+    assert A.kernel_anatomy.launches == before
+
+
+@pytest.mark.gpu
+def test_anatomy_entry_point_counts_replays(cuda, capsys):
+    """main() at B=2, k=2: five lines and the JSON line; K5 launched once
+    eagerly and 4 replays of 2 a variant, counted over the replays."""
+    import json
+
+    from spair_pytorch_tpu_torch.benchmarks import kernel_anatomy as A
+    before = A.kernel_anatomy.launches
+    line = A.main(["--batch", "2", "--k", "2"])
+    assert A.kernel_anatomy.launches - before == 5 * (1 + 4 * 2)
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 6 and json.loads(out[-1]) == line
+    assert line["device"] == torch.cuda.get_device_name(0)
+    assert all(v > 0 for v in line["ms"].values())
+
+
 @pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take(cuda):
     glimpses, boxes, _ = inputs(1, 2, 9, 1, cuda, False)

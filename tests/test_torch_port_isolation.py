@@ -37,7 +37,7 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
     assert "spair_pytorch_tpu_torch.train" in mods
     assert "spair_pytorch_tpu_torch.ops.convcodec" in mods
     for m in ("models.refine", "utils.viz", "utils.compile_cache",
-              "examples.quickstart", "bench"):
+              "examples.quickstart", "bench", "benchmarks.kernel_anatomy"):
         assert f"spair_pytorch_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
