@@ -242,7 +242,7 @@ random weights from the preset's seed:
                 tools/dp_check.py --n-model.
  22. anatomy    the windowed matmul paste of the JAX package's
                 benchmarks/kernel_anatomy.py, K5 (csrc/kernel_anatomy.cu,
-                built in phase 2, bf16 tensor cores), through its entry
+                built in phase 2, bf16 wgmma products), through its entry
                 point, python -m spair_pytorch_tpu_torch.benchmarks.
                 kernel_anatomy: (a) each of the five variants (base,
                 hoisted, nobuild, nomatmul, noaccum) against its plain
@@ -252,7 +252,11 @@ random weights from the preset's seed:
                 5e-3 rounded to nearest, hoisted against base at 1e-6, and
                 a control that must fail 1e-6 (the plain base with t kept
                 in f32); base (bf16 operands) and K1 with bf16
-                glimpses against the f32 composite at the bf16 bar; (b)
+                glimpses against the f32 composite at the bf16 bar; the
+                objects each 32-column strip's list holds, per variant at
+                B=32 and B=128, as the kernel walked them, equal to
+                strips_touched; the HGMMA instructions in the built library
+                (cuobjdump); (b)
                 the entry point at B=32 and B=128, each variant timed over
                 a captured graph of 30 launches (best of 3 replays), the
                 shares, each variant's bound, K1 on the same glimpses,
@@ -277,6 +281,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -342,6 +347,22 @@ def print_ptxas(K, name, label="build"):
             phase(label, f"{name} {entry}: "
                            f"{line.split(':', 1)[1].strip()}; {spill}")
             entry, spill = None, ""
+
+
+def sass_count(library, opcode):
+    """Instructions of ``opcode`` in a built library's SASS (cuobjdump
+    beside nvcc), or None where the toolkit has no cuobjdump."""
+    import shutil
+    from spair_pytorch_tpu_torch.ops.kernels import composite as K
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(K._find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "--dump-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return len(re.findall(rf"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?{opcode}\b",
+                          sass, flags=re.M))
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -3414,7 +3435,7 @@ def model_axis_phase(card, dev):
 
 
 # phase 22: the windowed matmul paste of the JAX package's
-# benchmarks/kernel_anatomy.py (K5), its five variants on bf16 tensor cores
+# benchmarks/kernel_anatomy.py (K5), its five variants on bf16 wgmma products
 # Each variant's kernel against its plain version with t's f32 sums rounded
 # toward zero, as the tensor cores round them (t_sum='toward_zero'); the
 # hoisted kernel against the base kernel. The kernel rounds the weights and
@@ -3504,6 +3525,33 @@ def anatomy_phase(K, card, dev):
     if not control >= ANATOMY_BAR:
         raise AssertionError(f"the anatomy bar {ANATOMY_BAR:g} does not tell "
                              f"t kept in f32 apart: {control}")
+    with torch.no_grad():
+        for b in ANATOMY_BATCHES:
+            color, alpha, imp, boxes, hw, win = A.paper_inputs(b, 7, dev)
+            g = A.pack(color, alpha, imp).to(torch.bfloat16).contiguous()
+            weights = A.hoisted_weights(boxes, hw, (OH, OW), win)
+            for v in A.VARIANTS:
+                w = weights if v == "hoisted" else (None, None)
+                *_, listed = A.kernel_anatomy_listed(v, g, boxes, hw, win, *w)
+                if not torch.equal(listed, A.strips_touched(v, boxes, hw,
+                                                            (OH, OW))):
+                    raise AssertionError(f"K5's {v} lists at B={b} are not "
+                                         f"strips_touched's")
+                per = listed.sum(1).float()  # (B, strips)
+                phase("anatomy", f"{v} B={b}: objects listed a 32-column "
+                                 f"strip (of {N}): mean {per.mean():.2f}, "
+                                 f"max {int(per.max())}, by strip " + ", ".join(
+                                     f"{x:.2f}" for x in per.mean(0).tolist())
+                      + "; equal to strips_touched")
+    lib = K.load_library("kernel_anatomy")
+    phase("anatomy", "shared memory a block at paper shapes: " + ", ".join(
+        f"{v} {lib.spair_kernel_anatomy_smem(C, OH, OW, HW[0], WIN, i)} B"
+        for i, v in enumerate(A.VARIANTS)))
+    hgmma = sass_count(K.library_path("kernel_anatomy"), "HGMMA")
+    phase("anatomy", "HGMMA instructions in the built kernel_anatomy library: "
+          + ("cuobjdump not found" if hgmma is None else str(hgmma)))
+    if hgmma == 0:
+        raise AssertionError("the kernel_anatomy library holds no HGMMA")
     with torch.no_grad():
         color, alpha, imp, boxes, hw, win = A.paper_inputs(B, 7, dev)
         g = A.pack(color, alpha, imp).to(torch.bfloat16).contiguous()

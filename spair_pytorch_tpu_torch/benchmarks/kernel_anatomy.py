@@ -6,7 +6,8 @@ The JAX script times five variants of an older form of K1's TPU kernel, a
 paste by two hat-weight products per object on bf16 operands, at paper
 shapes (B=32, N=121, 128x128, win 64, 28x28 glimpses, C=1). Here the
 same five variants are one hand-written CUDA kernel,
-``csrc/kernel_anatomy.cu``, on bf16 tensor cores:
+``csrc/kernel_anatomy.cu``, on Hopper's warpgroup (wgmma) bf16 tensor
+cores:
 
   base      the shipped form: py, pxt built per object in the kernel
   hoisted   py, pxt built outside the kernel (``hoisted_weights``, plain
@@ -24,6 +25,8 @@ plain PyTorch, on CPU tensors; the plain version is also the kernel's
 oracle on the card. ``pack`` and ``hoisted_weights`` are the port's copies
 of the JAX package's ``_pack`` and of ``run_variant``'s vectorized weights
 (``_row_coords``, ``_col_coords`` and ``_window_start`` over (B, N)).
+``strips_touched`` is the kernel's per-strip object cull in plain PyTorch;
+``kernel_anatomy_listed`` also returns the lists the kernel walked.
 
 Timing is the counterpart of the JAX script's ``lax.scan`` delta timing:
 k launches captured as one CUDA graph on the port's capture stream
@@ -134,6 +137,35 @@ def constant_weights(image_hw, object_hw, win: int, device):
             col_weights(t, s, iw, ow).to(torch.bfloat16))
 
 
+def strips_touched(variant, boxes, image_hw, object_hw, strip: int = STRIP):
+    """(B, N, W // strip) bool: the objects the kernel lists for each strip
+    of ``strip`` canvas columns (``csrc/kernel_anatomy.cu::touches``), those
+    whose column weights for ``variant`` are nonzero there: the box's for
+    base and hoisted, the constant box's for nobuild and noaccum, every
+    object for nomatmul (its broadcast plane is nonzero everywhere).
+
+    A column takes a nonzero hat weight where -1 < src < ow. src is monotone
+    in the column, so the strip's two end columns decide, unless one
+    column's step could leap that open interval (|xs| (W - 1) < 1, or a NaN
+    scale): then every column is tested."""
+    ih, iw = image_hw
+    _, ow = object_hw
+    b, n = boxes.shape[:2]
+    if variant == "nomatmul":
+        return torch.ones((b, n, iw // strip), dtype=torch.bool,
+                          device=boxes.device)
+    xt, xs = boxes.to(torch.float32)[..., 0], boxes.to(torch.float32)[..., 2]
+    if variant != "base" and variant != "hoisted":
+        xt, xs = torch.full_like(xt, CONST_T), torch.full_like(xs, CONST_S)
+    src = _source_coords_paste(xt, xs, iw, ow)          # (B, N, W)
+    ends = src[..., ::strip], src[..., strip - 1::strip]
+    by_ends = (torch.maximum(*ends) > -1) & (torch.minimum(*ends) < ow)
+    inside = (src > -1) & (src < ow)
+    by_columns = inside.reshape(b, n, iw // strip, strip).any(-1)
+    steady = (xs.abs() * (iw - 1) >= 1)[..., None]
+    return torch.where(steady, by_ends, by_columns)
+
+
 def _shapes(variant, g, boxes, image_hw, win, py, pxt, channels):
     """(b, n, c, oh, ow) after the checks both routes share."""
     if variant not in VARIANTS:
@@ -182,7 +214,8 @@ def matmul_toward_zero(a, b):
 
 def kernel_anatomy_plain(variant, g, boxes, image_hw, win, py=None,
                          pxt=None, channels: int = 1,
-                         t_sum: str = "nearest", round_t: bool = True):
+                         t_sum: str = "nearest", round_t: bool = True,
+                         cull: bool = False):
     """(num (B, C, H, W), den (B, 1, H, W)) float32 of one variant, in
     plain PyTorch: the objects in index order, each pasted by its two
     products (f32 sums of bf16 operands, t rounded to bf16 between them)
@@ -194,7 +227,9 @@ def kernel_anatomy_plain(variant, g, boxes, image_hw, win, py=None,
     the other down next to a bf16 rounding boundary, t's bf16 rounding
     flips: a few pixels in a million at paper shapes. ``round_t=False`` keeps t
     in f32: not the function, but the control a check of the kernel
-    against this version must tell apart from it."""
+    against this version must tell apart from it. ``cull=True`` adds each
+    object only on the strips ``strips_touched`` lists for it and leaves
+    the other columns as they are, as the kernel skips them."""
     if t_sum not in ("nearest", "toward_zero"):
         raise ValueError(f"t_sum must be 'nearest' or 'toward_zero', got "
                          f"{t_sum!r}")
@@ -212,7 +247,12 @@ def kernel_anatomy_plain(variant, g, boxes, image_hw, win, py=None,
     num = torch.zeros((b, c, ih, iw), dtype=f32, device=dev)
     den = torch.full((b, 1, ih, iw), n * _EPS, dtype=f32, device=dev)
     rows = torch.arange(win, device=dev)
+    if cull:  # (B, N, W): the columns each object is added on
+        listed = strips_touched(variant, boxes, image_hw, (oh, ow))
+        columns = listed.repeat_interleave(STRIP, dim=-1)
     for o in range(n):
+        if cull:
+            keep_num, keep_den = num.clone(), den.clone()
         t = (torch.matmul if t_sum == "nearest" else matmul_toward_zero)(
             py[:, o].to(f32), g[:, o].to(f32))  # (B, win, (C + 2) ow)
         if variant == "nomatmul":
@@ -230,11 +270,15 @@ def kernel_anatomy_plain(variant, g, boxes, image_hw, win, py=None,
             for k in range(c):
                 num[:, k, :8] += (alp * planes[k] * impe)[:, :8]
             den[:, 0, :8] += imp[:, :8]
-            continue
-        index = (y0[:, o, None] + rows)[:, :, None].expand(b, win, iw)
-        for k in range(c):
-            num[:, k].scatter_add_(1, index, alp * planes[k] * impe)
-        den[:, 0].scatter_add_(1, index, imp)
+        else:
+            index = (y0[:, o, None] + rows)[:, :, None].expand(b, win, iw)
+            for k in range(c):
+                num[:, k].scatter_add_(1, index, alp * planes[k] * impe)
+            den[:, 0].scatter_add_(1, index, imp)
+        if cull:
+            on = columns[:, o, None, None, :]
+            num = torch.where(on, num, keep_num)
+            den = torch.where(on, den, keep_den)
     return num, den
 
 
@@ -268,33 +312,53 @@ def kernel_anatomy(variant, g, boxes, image_hw, win, py=None, pxt=None,
     [xt, yt, xs, ys]; win the window's rows (``models/render.py::
     paste_window_rows``); py (B, N, win, oh) and pxt (B, N, ow, W) bf16
     from ``hoisted_weights`` for 'hoisted' only; ``channels`` = C."""
+    return _run(variant, g, boxes, image_hw, win, py, pxt, channels)[:2]
+
+
+def kernel_anatomy_listed(variant, g, boxes, image_hw, win, py=None,
+                          pxt=None, channels: int = 1):
+    """``kernel_anatomy``'s (num, den) and the lists its strips walked,
+    (B, N, W // STRIP) bool: on CUDA tensors what the kernel's producer
+    fetched, on CPU tensors ``strips_touched``."""
+    return _run(variant, g, boxes, image_hw, win, py, pxt, channels,
+                listed=True)
+
+
+def _run(variant, g, boxes, image_hw, win, py, pxt, channels, listed=False):
     image_hw = tuple(image_hw)
     device = _device_of([g, boxes, py, pxt], "kernel_anatomy")
     if device.type == "cpu":
-        return kernel_anatomy_plain(variant, g, boxes, image_hw, win, py,
-                                    pxt, channels)
+        num, den = kernel_anatomy_plain(variant, g, boxes, image_hw, win, py,
+                                        pxt, channels)
+        if not listed:
+            return num, den, None
+        oh, lanes = g.shape[2:]
+        return num, den, strips_touched(
+            variant, boxes, image_hw, (oh, lanes // (int(channels) + 2)))
     b, n, c, oh, ow = _shapes(variant, g, boxes, image_hw, win, py, pxt,
                               channels)
     _check_cuda(g, boxes, py, pxt, image_hw, win, oh, ow, b)
     ih, iw = image_hw
     index = VARIANTS.index(variant)
     lib = load_library("kernel_anatomy")
-    if lib.spair_kernel_anatomy_smem(c, ih, win, index) > _SMEM_MAX:
+    if lib.spair_kernel_anatomy_smem(c, oh, ow, ih, win, index) > _SMEM_MAX:
         raise ValueError(f"a canvas strip of {c + 1} planes of {ih} rows does "
                          f"not fit the kernel's shared memory")
     num = torch.empty((b, c, ih, iw), dtype=torch.float32, device=device)
     den = torch.empty((b, 1, ih, iw), dtype=torch.float32, device=device)
+    lists = (torch.zeros((b, iw // STRIP, n), dtype=torch.uint8,
+                         device=device) if listed else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.spair_kernel_anatomy(
             g.data_ptr(), boxes.data_ptr(),
             None if py is None else py.data_ptr(),
             None if pxt is None else pxt.data_ptr(), num.data_ptr(),
-            den.data_ptr(), b, n, c, oh, ow, ih, iw, win, index, n * _EPS,
-            stream)
+            den.data_ptr(), None if lists is None else lists.data_ptr(), b,
+            n, c, oh, ow, ih, iw, win, index, n * _EPS, stream)
     _raise_on(lib, err, "kernel_anatomy")
     kernel_anatomy.launches += 1
-    return num, den
+    return num, den, None if lists is None else lists.transpose(1, 2).bool()
 
 
 kernel_anatomy.launches = 0

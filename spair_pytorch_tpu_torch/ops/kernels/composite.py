@@ -345,8 +345,8 @@ def load_library(name: str) -> ctypes.CDLL:
                                     + [i32] * 4 + [ptr], i32),
             "spair_composite_bwd_smem": ([i32] * 7, ctypes.c_size_t)},
         "kernel_anatomy": {
-            "spair_kernel_anatomy": ([ptr] * 6 + [i32] * 9 + [f32, ptr], i32),
-            "spair_kernel_anatomy_smem": ([i32] * 4, ctypes.c_size_t)},
+            "spair_kernel_anatomy": ([ptr] * 7 + [i32] * 9 + [f32, ptr], i32),
+            "spair_kernel_anatomy_smem": ([i32] * 6, ctypes.c_size_t)},
     }
     for fn, (argtypes, restype) in signatures[name].items():
         getattr(lib, fn).argtypes = argtypes

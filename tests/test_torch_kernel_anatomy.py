@@ -386,3 +386,107 @@ def test_main_defaults_to_the_card():
     assert A.make_parser().get_default("device") == "cuda"
     assert A.make_parser().get_default("batch") == 32
     assert A.make_parser().get_default("k") == 30
+
+
+# The kernel's per-strip cull (``strips_touched``, csrc/kernel_anatomy.cu::
+# touches) on the shapes the card's tests take (tests/test_torch_kernel_gpu.py
+# ANATOMY_SHAPES): (B, N, C, glimpse, canvas, window, max scale)
+STRIP_SHAPES = {
+    "paper": (4, 121, 1, 28, (128, 128), 64, 48 / 128),
+    "c3": (2, 9, 3, 14, (64, 64), 32, 0.3),
+    "win_eq_h": (2, 40, 1, 28, (128, 128), 128, 48 / 128),
+    "small": (2, 12, 1, 8, (16, 32), 16, 0.5),
+}
+
+
+def strip_boxes(shape, placement):
+    """(1, M, 4) float32 boxes for a shape: 'random' as the card's tests draw
+    them; 'boundaries' with a support edge (src = -1 or src = ow) at the
+    last column of a strip or the first of the next, each centre jittered by
+    -3 to +3 float32 ulps, at three scales (and at the canvas's first and
+    last columns); 'edges' centred off and on the
+    canvas edges, with scales down to where one column step leaps the whole
+    glimpse (|xs| (W - 1) < 1) and around that threshold."""
+    b, n, _, o, (ih, iw), _, max_scale = STRIP_SHAPES[shape]
+    rng = np.random.RandomState(sorted(STRIP_SHAPES).index(shape))
+    if placement == "random":
+        boxes = np.stack([rng.uniform(0.05, 0.95, (b, n)),
+                          rng.uniform(0.05, 0.95, (b, n)),
+                          rng.uniform(0.05, max_scale, (b, n)),
+                          rng.uniform(0.05, max_scale, (b, n))], -1)
+        return boxes.reshape(1, -1, 4).astype("f")
+    rows = []
+    if placement == "boundaries":
+        k = 1.0 + 2.0 / (o - 1)  # src = -1 at u = 2t - 1 - s k, ow at + s k
+        columns = [0, iw - 1] + [c for s in range(A.STRIP, iw, A.STRIP)
+                                 for c in (s - 1, s)]
+        for x in columns:
+            for s in (0.05, 0.15, max_scale):
+                for t in (x / (iw - 1) + s * k / 2,   # left edge at x
+                          x / (iw - 1) - s * k / 2):  # right edge at x
+                    t32 = np.float32(t)
+                    for ulps in range(-3, 4):
+                        rows.append([t32 + ulps * np.spacing(t32), 0.5, s,
+                                     0.2])
+    else:
+        for t in (-0.3, -0.05, 0.0, 0.02, 0.5, 0.98, 1.0, 1.05, 1.3):
+            for s in (1e-4, 0.5 / (iw - 1), 0.999 / (iw - 1), 1.0 / (iw - 1),
+                      1.001 / (iw - 1), 0.05, max_scale, 1.5):
+                rows.append([t, 0.5, s, 0.2])
+    return np.asarray(rows, "f")[None]
+
+
+@pytest.mark.parametrize("placement", ["random", "boundaries", "edges"])
+@pytest.mark.parametrize("shape", sorted(STRIP_SHAPES))
+@pytest.mark.parametrize("variant", A.VARIANTS)
+def test_strips_touched_is_any_nonzero_weight(variant, shape, placement):
+    """strips_touched lists exactly the strips on which the variant's own
+    column weights (hoisted_weights' pxt for base and hoisted, the constant
+    box's for nobuild and noaccum) have a nonzero; nomatmul's broadcast
+    planes are nonzero everywhere, so it lists every strip."""
+    _, _, _, o, hw, win, _ = STRIP_SHAPES[shape]
+    boxes = torch.from_numpy(strip_boxes(shape, placement))
+    got = A.strips_touched(variant, boxes, hw, (o, o))
+    b, n = boxes.shape[:2]
+    strips = hw[1] // A.STRIP
+    assert got.shape == (b, n, strips) and got.dtype == torch.bool
+    if variant == "nomatmul":
+        assert bool(got.all())
+        return
+    if variant in ("base", "hoisted"):
+        _, pxt = A.hoisted_weights(boxes, hw, (o, o), win)
+    else:
+        pxt = A.constant_weights(hw, (o, o), win, "cpu")[1].expand(
+            b, n, o, hw[1])
+    nonzero = (pxt != 0).any(-2).reshape(b, n, strips, A.STRIP).any(-1)
+    np.testing.assert_array_equal(got.numpy(), nonzero.numpy())
+
+
+@pytest.mark.parametrize("variant,case", PAIRS)
+def test_culled_plain_equals_dense_plain(variant, case):
+    """The plain version with each object added only on the strips
+    strips_touched lists for it (the rest of the canvas left as it was, as
+    the kernel skips them) equals the dense plain version bit for bit."""
+    (color, alpha, imp, boxes), hw, win = case_inputs(case)
+    c, oh, ow = color.shape[2:]
+    t = torch.from_numpy
+    g = A.pack(t(color), t(alpha), t(imp)).to(torch.bfloat16).contiguous()
+    w = A.hoisted_weights(t(boxes), hw, (oh, ow), win) \
+        if variant == "hoisted" else (None, None)
+    dense = A.kernel_anatomy_plain(variant, g, t(boxes), hw, win, *w,
+                                   channels=c)
+    culled = A.kernel_anatomy_plain(variant, g, t(boxes), hw, win, *w,
+                                    channels=c, cull=True)
+    for x, y in zip(culled, dense):
+        assert torch.equal(x, y)
+
+
+def test_listed_on_the_cpu_is_strips_touched():
+    (color, alpha, imp, boxes), hw, win = case_inputs("paper")
+    t = torch.from_numpy
+    g = A.pack(t(color), t(alpha), t(imp)).to(torch.bfloat16).contiguous()
+    num, den, listed = A.kernel_anatomy_listed("base", g, t(boxes), hw, win)
+    assert torch.equal(listed, A.strips_touched("base", t(boxes), hw,
+                                                (28, 28)))
+    want = A.kernel_anatomy("base", g, t(boxes), hw, win)
+    assert torch.equal(num, want[0]) and torch.equal(den, want[1])

@@ -163,6 +163,97 @@ def test_anatomy_bar_refuses_t_kept_in_f32(cuda, shape):
     assert rel(got, unrounded) >= ANATOMY_BAR
 
 
+def held_to_plain(A, variant, got, g, boxes, hw, win, w, c=1):
+    for t_sum, bar in (("toward_zero", ANATOMY_BAR),
+                       ("nearest", ANATOMY_NEAREST_BAR)):
+        want = A.kernel_anatomy_plain(variant, g, boxes, hw, win, *w,
+                                      channels=c, t_sum=t_sum)
+        for x, y in zip(got, want):
+            scale = float(y.abs().max())
+            err = float((x - y).abs().max())
+            assert (err / scale if scale else err) < bar, (t_sum, err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(ANATOMY_SHAPES))
+@pytest.mark.parametrize("variant", ["base", "hoisted", "nobuild",
+                                     "nomatmul", "noaccum"])
+def test_anatomy_kernel_lists_strips_touched(cuda, variant, shape):
+    """The lists the kernel's producer walked are strips_touched's."""
+    from spair_pytorch_tpu_torch.benchmarks import kernel_anatomy as A
+    g, boxes, hw, win, c = anatomy_inputs(shape, cuda)
+    o = (g.shape[2], g.shape[3] // (c + 2))
+    w = A.hoisted_weights(boxes, hw, o, win) if variant == "hoisted" \
+        else (None, None)
+    *got, listed = A.kernel_anatomy_listed(variant, g, boxes, hw, win, *w,
+                                           channels=c)
+    assert torch.equal(listed, A.strips_touched(variant, boxes, hw, o))
+    held_to_plain(A, variant, got, g, boxes, hw, win, w, c)
+
+
+# the seams of K5's design, paper shapes (28x28, 128x128, win 64) at B=2:
+# an object whose support lies in one strip (strip 1 in image 0, strip 2 in
+# image 1); objects centred on the strip boundaries; support edges on the
+# strip boundaries within 3 float32 ulps; scales so small that one column
+# step leaps the glimpse (the cull's column-by-column test); windows clamped
+# at rows 0 and H - win; fewer objects than the consumers and the ring's
+# stages, and counts that are not a multiple of the consumers' turns
+ANATOMY_SEAMS = ("one_strip", "straddle", "edge_ulps", "tiny", "clamped",
+                 "n1", "n2", "n3", "n5")
+
+
+def seam_inputs(seam, dev):
+    from spair_pytorch_tpu_torch.benchmarks import kernel_anatomy as A
+    rng = np.random.RandomState(ANATOMY_SEAMS.index(seam))
+    n = {"one_strip": 1, "straddle": 9, "clamped": 8, "edge_ulps": 84,
+         "tiny": 16}.get(seam) or int(seam[1:])
+    boxes = np.stack([rng.uniform(0.05, 0.95, (2, n)),
+                      rng.uniform(0.05, 0.95, (2, n)),
+                      rng.uniform(0.05, 48 / 128, (2, n)),
+                      rng.uniform(0.05, 48 / 128, (2, n))], -1)
+    if seam == "one_strip":  # columns 48 +- 7 and 80 +- 7
+        boxes[:, 0] = [[48 / 127, 0.5, 0.1, 0.2], [80 / 127, 0.4, 0.1, 0.3]]
+    elif seam == "straddle":
+        boxes[..., 0] = np.repeat([32 / 127, 64 / 127, 96 / 127], 3)
+        boxes[..., 2] = np.tile([0.05, 0.15, 0.3], 3)
+    elif seam == "edge_ulps":  # src = -1 or 28 at columns 31, 32, 63, ...
+        k, rows = 1.0 + 2.0 / 27, []
+        for x in (31, 32, 63, 64, 95, 96):
+            for t in (x / 127 + 0.1 * k / 2, x / 127 - 0.1 * k / 2):
+                t32 = np.float32(t)
+                rows += [t32 + u * np.spacing(t32) for u in range(-3, 4)]
+        boxes[..., 0] = np.asarray(rows)
+        boxes[..., 2] = 0.1
+    elif seam == "tiny":
+        boxes[..., 2] = rng.uniform(0.001, 0.007, (2, n))
+    elif seam == "clamped":
+        boxes[..., 1] = np.where(np.arange(n) % 2, rng.uniform(0.0, 0.05, n),
+                                 rng.uniform(0.95, 1.0, n))
+    g = A.pack(*(torch.as_tensor(rng.uniform(lo, 1.0, (2, n, 1, 28, 28))
+                                 .astype("f"), device=dev)
+                 for lo in (0.0, 0.0, 0.01))).to(torch.bfloat16).contiguous()
+    return g, torch.as_tensor(boxes.astype("f"), device=dev), (128, 128), 64
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seam", ANATOMY_SEAMS)
+@pytest.mark.parametrize("variant", ["base", "hoisted", "nobuild",
+                                     "nomatmul", "noaccum"])
+def test_anatomy_kernel_at_the_seams(cuda, variant, seam):
+    from spair_pytorch_tpu_torch.benchmarks import kernel_anatomy as A
+    g, boxes, hw, win = seam_inputs(seam, cuda)
+    w = A.hoisted_weights(boxes, hw, (28, 28), win) \
+        if variant == "hoisted" else (None, None)
+    *got, listed = A.kernel_anatomy_listed(variant, g, boxes, hw, win, *w)
+    assert torch.equal(listed, A.strips_touched(variant, boxes, hw, (28, 28)))
+    if seam == "one_strip" and variant in ("base", "hoisted"):
+        assert listed.sum(-1).tolist() == [[1], [1]]
+    if seam == "clamped":
+        y0 = A.window_start(boxes[..., 1], boxes[..., 3], 128, win, 28)
+        assert set(y0.flatten().tolist()) == {0, 128 - win}
+    held_to_plain(A, variant, got, g, boxes, hw, win, w)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bad", ["dtype", "device", "odd_glimpse", "width",
                                  "window", "strided"])
