@@ -17,6 +17,10 @@ the overwritten values.
 crop in bf16 (float32 master weights); features, MLP outputs and the
 reconstruction come back in float32, so the latent math, the KLs, the
 compositor and the loss are float32, as in the JAX package.
+
+The forward marks its layers' tiles for a span recorder that a train step
+activates (``utils/spans.py``: ``spans.mark`` and ``spans.boundary``);
+with none active each site is one ``is None`` test.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from spair_pytorch_tpu_torch.models.render import (composite_objects,
                                                    render_objects, takes_topk)
 from spair_pytorch_tpu_torch.ops.math import binary_cross_entropy_sum, safe_log
 from spair_pytorch_tpu_torch.ops.schedules import exponential_decay
+from spair_pytorch_tpu_torch.utils import spans
 from spair_pytorch_tpu_torch.utils.debug import nan_hunter
 
 __all__ = ["init_params", "forward", "forward_head", "forward_tail",
@@ -154,7 +159,9 @@ def infer_latents(params, cfg: SpairConfig, x, step, generator=None,
     device = x.device
     dtype = compute_dtype(cfg)
 
+    spans.mark("backbone")
     feat_flat = params.backbone(x, dtype).reshape(b, n, -1).to(torch.float32)
+    feat_flat = spans.boundary(feat_flat, "fronts", "backbone.bwd")
     if noise is None:
         noise = sample_noise(generator, b, (gh, gw), cfg, device)
     noise_flat = {name: v.reshape(b, n, v.shape[-1])
@@ -299,14 +306,18 @@ def forward_head(params, cfg: SpairConfig, x, step, generator=None,
     ``reduce_live`` as ``render_objects`` takes it). ``mesh``: the
     inference's model axis (``infer_latents``); what follows it is
     replicated on the ranks of a model group."""
-    z = infer_latents(params, cfg, x, step, generator, noise, mesh)
+    z = spans.boundary(infer_latents(params, cfg, x, step, generator, noise,
+                                     mesh), "kl", "fronts.bwd")
     nan_hunter("after inference", z_where=z["z_where"], z_pres=z["z_pres"],
                z_depth=z["z_depth"], feat=z["feat_flat"])
 
-    kls = independent_kl(z["posterior"], z["z_pres"], cfg)
+    kls = spans.boundary(independent_kl(z["posterior"], z["z_pres"], cfg),
+                         "count_prior", "kl.bwd")
     count_kl = (count_prior_kl_parallel if cfg.count_prior_parallel
                 else count_prior_kl)
-    kls["pres_dist"] = count_kl(z["z_pres_prob"], z["z_pres"], step, cfg)
+    kls["pres_dist"] = spans.boundary(
+        count_kl(z["z_pres_prob"], z["z_pres"], step, cfg), "decoder",
+        "count_prior.bwd")
     nan_hunter("KL divergence", **kls)
     objects, live_at_most_k = render_objects(
         params, cfg, z["z_attr"], z["z_where"], z["z_depth"], z["z_pres"],
@@ -324,8 +335,10 @@ def forward_tail(params, cfg: SpairConfig, head, topk: bool,
     z_where, z_attr = z["z_where"], z["z_attr"]
     z_depth, z_pres = z["z_depth"], z["z_pres"]
     z_pres_prob, tw = z["z_pres_prob"], z["training_wheel"]
-    recon = composite_objects(cfg, head["objects"], cfg.image_shape[1:],
-                              topk).to(torch.float32)
+    objects = spans.boundary(head["objects"], "composite", "decoder.bwd")
+    recon = spans.boundary(
+        composite_objects(cfg, objects, cfg.image_shape[1:],
+                          topk).to(torch.float32), "loss", "composite.bwd")
     nan_hunter("render", recon=recon)
     loss, terms = loss_and_metrics(x, recon, kls, cfg, batch_share)
 

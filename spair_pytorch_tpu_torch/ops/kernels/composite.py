@@ -15,8 +15,9 @@ The same two kernels, launched with a row band, are ``ops/kernels/
 composite_v3.py``'s K3 and K4 (``_launch_forward`` / ``_launch_backward``
 take the band). ``csrc/kernel_anatomy.cu``, the windowed matmul paste of
 ``benchmarks/kernel_anatomy.py`` (K5), is built beside them and launched by
-``benchmarks/kernel_anatomy.py::kernel_anatomy``. They are compiled with
-``nvcc`` at first use into
+``benchmarks/kernel_anatomy.py::kernel_anatomy``; ``csrc/spans.cu``, the span
+mark of ``utils/spans.py``, too, but only when a recorder first needs it.
+They are compiled with ``nvcc`` at first use into
 the build directory (``utils/compile_cache.py``: the package's ``_build/``
 unless ``SPAIR_COMPILE_CACHE`` says otherwise), one library per source,
 named by the hash of the source and the shared header (so an edited source
@@ -44,7 +45,11 @@ from spair_pytorch_tpu_torch.utils.compile_cache import (
 _EPS = 1e-9
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("composite_fwd", "composite_bwd", "kernel_anatomy")}
+           for name in ("composite_fwd", "composite_bwd", "kernel_anatomy",
+                        "spans")}
+# built alone at their first load, never with the others: a run without
+# span marks compiles no span kernel
+ON_DEMAND = ("spans",)
 HEADERS = (_PKG / "csrc" / "composite_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -293,12 +298,15 @@ def library_path(name: str) -> Path:
     return _build_dir() / f"{name}_{digest[:16]}.so"
 
 
-def build_library() -> Dict[str, Path]:
-    """Compile every source in ``SOURCES`` that has no build of the same
-    hash in the build directory, one nvcc process per source, all started
-    together; returns {name: shared library path}. Waits for every nvcc
-    it started, then raises with nvcc's output if any build failed."""
-    outs = {name: library_path(name) for name in SOURCES}
+def build_library(names=None) -> Dict[str, Path]:
+    """Compile every source in ``SOURCES`` named in ``names`` (by default
+    every one but those ``ON_DEMAND``) that has no build of the same hash in
+    the build directory, one nvcc process per source, all started together;
+    returns {name: shared library path}. Waits for every nvcc it started,
+    then raises with nvcc's output if any build failed."""
+    if names is None:
+        names = [name for name in SOURCES if name not in ON_DEMAND]
+    outs = {name: library_path(name) for name in names}
     todo = {name: out for name, out in outs.items() if not out.exists()}
     if not todo:
         return outs
@@ -334,7 +342,8 @@ def ptxas_report(name: str) -> str:
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load one kernel library, once per process."""
-    lib = ctypes.CDLL(str(build_library()[name]))
+    lib = ctypes.CDLL(str(build_library(
+        [name] if name in ON_DEMAND else None)[name]))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {  # function: (argtypes, restype)
         "composite_fwd": {
@@ -347,6 +356,11 @@ def load_library(name: str) -> ctypes.CDLL:
         "kernel_anatomy": {
             "spair_kernel_anatomy": ([ptr] * 7 + [i32] * 9 + [f32, ptr], i32),
             "spair_kernel_anatomy_smem": ([i32] * 6, ctypes.c_size_t)},
+        "spans": {
+            "spair_span_mark_launch": ([ptr] + [i32] * 4 + [ptr], i32),
+            "spair_span_host_words": ([i32, ctypes.POINTER(ptr),
+                                       ctypes.POINTER(ptr)], i32),
+            "spair_span_free_host_words": ([ptr], i32)},
     }
     for fn, (argtypes, restype) in signatures[name].items():
         getattr(lib, fn).argtypes = argtypes

@@ -29,6 +29,15 @@ or after a ``load_state_dict`` replaced any of those tensors, raises: the
 step was captured for the tensors it writes. A restore therefore comes
 before the first call (``train.py`` restores, then calls).
 
+Spans. With a recorder (``utils/spans.py``, ``make_train_step(...,
+spans=True)``) the eager step and the captures mark the step's tiles on
+the card, so every replay runs those marks, and the step records its host
+spans: ``spair.warm_up`` and one ``spair.capture.<graph>`` a graph at the
+first call, then for each step ``spair.replay`` (a segmented step's
+``spair.replay.A``, ``spair.branch_read`` and ``spair.replay.B``) and
+``spair.metrics_out``, and ``spair.load`` for a batch. Without one they
+are no-op contexts and the graphs hold no mark.
+
 Launch counts. The kernel wrappers count Python calls, so the capture
 counts once and a replay never. ``CapturedStep`` takes back what the
 capture counted and adds each wrapper's launches of one step on every
@@ -111,6 +120,7 @@ from spair_pytorch_tpu_torch.config import SpairConfig
 from spair_pytorch_tpu_torch.models.render import takes_topk
 from spair_pytorch_tpu_torch.ops.kernels import composite as _k12
 from spair_pytorch_tpu_torch.ops.kernels import composite_v3 as _k34
+from spair_pytorch_tpu_torch.utils import spans as _spans
 from spair_pytorch_tpu_torch.utils.debug import host_checks_on
 
 # the wrappers that count their kernels' launches: K1, K2, K3, K4
@@ -245,9 +255,10 @@ class CapturedStep:
     call's first step eager and every other one a replay of one captured
     step (module docstring)."""
 
-    def __init__(self, one_step, steps_per_call: int = 1):
+    def __init__(self, one_step, steps_per_call: int = 1, spans=None):
         self.one_step = one_step
         self.k = steps_per_call
+        self.spans = spans      # a utils/spans.py recorder, or None
         self.graph = None       # set before the capture: never retried
         self.ready = False      # set when every capture has succeeded
         self.static_in = ()     # the batch buffers the graph reads
@@ -257,9 +268,10 @@ class CapturedStep:
         self.bound = None
 
     def __call__(self, state, *batch):
+        host = self.spans or _spans.OFF
         first = None
         if self.graph is None:
-            first = self._warm_up_and_capture(state, batch)
+            first = self._warm_up_and_capture(state, batch, host)
         elif not self.ready:
             raise RuntimeError("this step's capture failed; build a new "
                                "step with make_train_step")
@@ -273,20 +285,24 @@ class CapturedStep:
             if host_checks_on():
                 raise RuntimeError("the NaN hunter is on: a captured step "
                                    "cannot run it; build a new step")
-            self._load(batch)
+            with host.host("spair.load"):
+                self._load(batch)
         out = torch.empty((len(self.keys), self.k), device=state.step.device)
         if first is not None:
             out[:, 0].copy_(first)
         for i in range(0 if first is None else 1, self.k):
-            self._replay()
-            out[:, i].copy_(self.static_out)
+            self._replay(host)
+            with host.host("spair.metrics_out"):
+                out[:, i].copy_(self.static_out)
+            host.next_step()
         if self.k == 1:
             return state, {k: out[j, 0] for j, k in enumerate(self.keys)}
         return state, {k: out[j] for j, k in enumerate(self.keys)}
 
-    def _replay(self):
-        self.graph.replay()
-        _replayed(self.per_replay)
+    def _replay(self, host):
+        with host.host("spair.replay"):
+            self.graph.replay()
+            _replayed(self.per_replay)
 
     def _load(self, batch):
         if len(batch) != len(self.static_in) or any(
@@ -306,16 +322,19 @@ class CapturedStep:
         self.keys = list(metrics)
         return torch.stack([metrics[k] for k in self.keys])
 
-    def _warm_up_and_capture(self, state, batch):
+    def _warm_up_and_capture(self, state, batch, host):
         """One eager step on a side stream, then the capture on it; returns
         the eager step's metrics, stacked."""
         device = state.step.device
-        first = _warm_up(device, lambda: self._stacked(state, batch))
+        with host.host("spair.warm_up"):
+            first = _warm_up(device, lambda: self._stacked(state, batch))
+        host.next_step()
         self.static_in = tuple(b.clone() for b in batch)
         self.graph = torch.cuda.CUDAGraph()
-        self.static_out, self.per_replay = _capture(
-            self.graph, lambda: self._stacked(state, self.static_in), device,
-            state.generator)
+        with host.host("spair.capture.step"):
+            self.static_out, self.per_replay = _capture(
+                self.graph, lambda: self._stacked(state, self.static_in),
+                device, state.generator)
         self.bound = _addresses(state)
         self.ready = True
         return first
@@ -329,22 +348,25 @@ class SegmentedStep(CapturedStep):
     counts the branch of every step, the first call's eager one too."""
 
     def __init__(self, head, tail, predicate, steps_per_call: int = 1,
-                 branches: Optional[Branches] = None):
-        super().__init__(None, steps_per_call)
+                 branches: Optional[Branches] = None, spans=None):
+        super().__init__(None, steps_per_call, spans)
         self.head, self.tail, self.predicate = head, tail, predicate
         self.branches = Branches() if branches is None else branches
         self.pred = None   # A's static predicate
         self.carry = None  # A's static outputs, which the Bs read
         self.tails = {}    # topk -> (B's graph, launches of one replay)
 
-    def _replay(self):
-        self.graph.replay()
-        _replayed(self.per_replay)
-        topk = takes_topk(self.pred)  # the one host read of a step
+    def _replay(self, host):
+        with host.host("spair.replay.A"):
+            self.graph.replay()
+            _replayed(self.per_replay)
+        with host.host("spair.branch_read"):
+            topk = takes_topk(self.pred)  # the one host read of a step
         self.branches.took(topk)
         graph, per_replay = self.tails[topk]
-        graph.replay()
-        _replayed(per_replay)
+        with host.host("spair.replay.B"):
+            graph.replay()
+            _replayed(per_replay)
 
     def _tail_stacked(self, state, carry, topk, retain_graph=False):
         metrics = self.tail(state, carry, topk, retain_graph)
@@ -361,18 +383,21 @@ class SegmentedStep(CapturedStep):
         self.keys = list(metrics)
         return torch.stack([metrics[k] for k in self.keys])
 
-    def _warm_up_and_capture(self, state, batch):
+    def _warm_up_and_capture(self, state, batch, host):
         """One eager step on the side stream, then A and both Bs captured
         on it into one pool; returns the eager step's metrics, stacked."""
         device = state.step.device
-        first = _warm_up(device, lambda: self._eager_step(state, batch))
+        with host.host("spair.warm_up"):
+            first = _warm_up(device, lambda: self._eager_step(state, batch))
+        host.next_step()
         self.static_in = tuple(b.clone() for b in batch)
         self.static_out = torch.empty_like(first)
         pool = torch.cuda.graph_pool_handle()
         self.graph = torch.cuda.CUDAGraph()
-        self.carry, self.per_replay = _capture(
-            self.graph, lambda: self.head(state, *self.static_in), device,
-            state.generator, pool)
+        with host.host("spair.capture.A"):
+            self.carry, self.per_replay = _capture(
+                self.graph, lambda: self.head(state, *self.static_in),
+                device, state.generator, pool)
         self.pred = self.predicate(self.carry)
         # the top-K B first: its backward keeps A's autograd graph, and so
         # A's saved tensors, for the full B's backward, which frees it. A
@@ -383,7 +408,8 @@ class SegmentedStep(CapturedStep):
         for topk in (True, False):
             graph = torch.cuda.CUDAGraph()
             with torch.autograd._unsafe_preserve_version_counter(
-                    _state_tensors(state)):
+                    _state_tensors(state)), host.host(
+                        "spair.capture.B." + ("topk" if topk else "full")):
                 _, per_replay = _capture(
                     graph, lambda t=topk: self.static_out.copy_(
                         self._tail_stacked(state, self.carry, t,

@@ -65,6 +65,7 @@ from spair_pytorch_tpu_torch.parallel.captured import (Branches,
 from spair_pytorch_tpu_torch.parallel.mesh import (Mesh, all_reduce_,
                                                    gather_batch, global_max,
                                                    reduce_metrics)
+from spair_pytorch_tpu_torch.utils import spans as _spans
 from spair_pytorch_tpu_torch.utils.debug import grad_norms_by_head
 
 
@@ -186,6 +187,7 @@ def train_step_tail(cfg: SpairConfig, state: TrainState, head, topk: bool,
         (loss * (1.0 / mesh.n_model)).backward(retain_graph=retain_graph)
     else:
         loss.backward(retain_graph=retain_graph)
+    _spans.mark("optimizer")
     # a parameter the loss does not reach has a zero gradient, as in JAX:
     # Adam still decays its moments
     grads = []
@@ -222,12 +224,14 @@ def train_step_tail(cfg: SpairConfig, state: TrainState, head, topk: bool,
             out = reduce_metrics(mesh, out)
     opt.step()
     state.step += 1
+    _spans.mark(_spans.LAST)
     return {k: v.detach() for k, v in out.items()}
 
 
 def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
                     with_detection: bool = False, datagen=None,
-                    steps_per_call: int = 1, eager: bool = False):
+                    steps_per_call: int = 1, eager: bool = False,
+                    spans: bool = False):
     """Returns step(state[, batch]) -> (state, metrics).
 
     ``batch`` is the image tensor, or (x, gt_bbox, gt_count) with
@@ -256,7 +260,19 @@ def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
 
     With ``render_topk`` the returned function's ``branches`` (a
     ``captured.Branches``) counts the branch each step took, eager or
-    captured; it is None otherwise."""
+    captured; it is None otherwise.
+
+    With ``spans`` the returned function's ``spans`` is the step's span
+    recorder (``utils/spans.py``), None otherwise: the model code marks its
+    tiles during the eager step and the captures, every replay runs those
+    marks on the card, and the step records its host spans (``spair.call``;
+    each step's ``spair.replay``, or ``spair.replay.A``,
+    ``spair.branch_read`` and ``spair.replay.B``; ``spair.load`` and
+    ``spair.metrics_out``; at the first call ``spair.warm_up`` and one
+    ``spair.capture.<graph>`` a graph; ``spair.step`` for an eager step).
+    Without it the step's graphs are exactly those of a step built before
+    spans existed."""
+    recorder = _spans.Spans() if spans else None
     if steps_per_call > 1 and datagen is None:
         raise ValueError("steps_per_call > 1 needs datagen")
 
@@ -292,6 +308,10 @@ def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
         return carry[0]["live_at_most_k"]
 
     branches = Branches() if topk_branches(cfg) else None
+    if recorder is not None:
+        head = recorder.activates(_marked_head(head, branches is not None))
+        tail = recorder.activates(tail)
+    host = recorder or _spans.OFF
 
     def one_step(state, *batch):
         carry = head(state, *batch)
@@ -300,10 +320,16 @@ def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
             branches.took(topk)
         return tail(state, carry, topk)
 
+    def eager_step(state, *batch):
+        with host.host("spair.step"):
+            metrics = one_step(state, *batch)
+        host.next_step()
+        return metrics
+
     def eager_steps(state, *batch):
         if steps_per_call == 1:
-            return state, one_step(state, *batch)
-        ms = [one_step(state) for _ in range(steps_per_call)]
+            return state, eager_step(state, *batch)
+        ms = [eager_step(state) for _ in range(steps_per_call)]
         return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
     run = None  # chosen at the first call, from the state's device
@@ -313,20 +339,36 @@ def make_train_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,
         if run is None:
             captured = not eager and eager_reason(
                 cfg, state.step.device, mesh) is None
+            if recorder is not None:
+                recorder.bind(state.step.device)
             if not captured:
                 run = eager_steps
             elif branches is not None:
                 run = SegmentedStep(head, tail, predicate, steps_per_call,
-                                    branches)
+                                    branches, recorder)
             else:
-                run = CapturedStep(one_step, steps_per_call)
+                run = CapturedStep(one_step, steps_per_call, recorder)
         if branches is not None:
             branches.new_call()
-        if batch is None:
-            return run(state)
-        return run(state, *(batch if with_detection else (batch,)))
+        with host.host("spair.call"):
+            if batch is None:
+                return run(state)
+            return run(state, *(batch if with_detection else (batch,)))
     step_fn.branches = branches
+    step_fn.spans = recorder
     return step_fn
+
+
+def _marked_head(head, segmented: bool):
+    """``head`` with the step's first mark before it and, in a segmented
+    step, the mark of the gap to segment B after it."""
+    def marked(state, *batch):
+        _spans.mark("scenes")
+        carry = head(state, *batch)
+        if segmented:
+            _spans.mark("gap.branch")
+        return carry
+    return marked
 
 
 def make_eval_step(cfg: SpairConfig, mesh: Optional[Mesh] = None,

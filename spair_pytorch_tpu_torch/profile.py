@@ -3,12 +3,16 @@
 
 Runs ``--warmup`` steps, then ``--steps`` steps under ``torch.profiler``
 (the CPU and, on a card, the device's kernels), and writes the trace as
-chrome JSON (``<out>/trace.json``, for Perfetto or chrome://tracing) beside
-the per-step times of ``utils/debug.py::Benchmark`` (CUDA events on the
-card). Each step's scenes are generated on the device inside its span.
-On the card the step is a captured CUDA graph (``parallel/captured.py``):
-the first warm-up step captures it, and the profiled steps are replays,
-whose trace holds the graph's kernels and no host-side operators.
+chrome JSON (``<out>/trace.json``, for Perfetto or chrome://tracing). The
+step is built with its span recorder on (``utils/spans.py``), so the trace
+holds the program's host spans (``spair.call``, ``spair.replay``, ...) and
+its span marks (``spair_span_mark``: kernels on the card, host ranges on
+the CPU), and the CLI prints the profiled steps' tiles (ms a step, p50,
+p95) and their host spans (ms a step). Each step's scenes are generated on
+the device inside its step. On the card the step is a captured CUDA graph
+(``parallel/captured.py``): the first warm-up step captures it, and the
+profiled steps are replays, whose trace holds the graph's kernels and no
+host-side operators.
 
 Usage:
     python -m spair_pytorch_tpu_torch.profile --preset paper128 --steps 5 \\
@@ -18,17 +22,19 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import collections
 import os
+import time
 
 import torch
 from torch.profiler import ProfilerActivity
 
 from spair_pytorch_tpu_torch.config import PRESETS
-from spair_pytorch_tpu_torch.data import generate_batch, glyph_bank
+from spair_pytorch_tpu_torch.data import glyph_bank
 from spair_pytorch_tpu_torch.parallel import (create_train_state,
                                               make_train_step)
 from spair_pytorch_tpu_torch.train import data_config
-from spair_pytorch_tpu_torch.utils.debug import Benchmark
+from spair_pytorch_tpu_torch.utils.spans import table
 
 
 def main(argv=None):
@@ -47,35 +53,40 @@ def main(argv=None):
     overrides = {"inference_mode": args.mode} if args.mode else {}
     cfg = PRESETS[args.preset](**overrides)
     state = create_train_state(cfg, device=device)
-    step_fn = make_train_step(cfg)
     dcfg = data_config(cfg)
     bank = torch.as_tensor(glyph_bank(dcfg.patch_hw), device=device)
-    gen = torch.Generator(device=device).manual_seed(0)
+    step_fn = make_train_step(cfg, datagen=(dcfg, bank), spans=True)
 
-    def step():
-        x = generate_batch(gen, bank, cfg.batch_size, dcfg)[0]
-        step_fn(state, x)
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
-    bench = Benchmark(device)
     for _ in range(args.warmup):
-        with bench.span("warmup"):
-            step()
+        step_fn(state)
+    sync()
+    recorder = step_fn.spans
+    recorder.reset()
+    t0 = time.perf_counter_ns()
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
         for _ in range(args.steps):
-            with bench.span("train_step"):
-                step()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            step_fn(state)
+        sync()
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, "trace.json")
     prof.export_chrome_trace(path)
 
-    print(bench.report())
+    print(table(recorder.summary()))
+    host = collections.defaultdict(int)
+    for s in recorder.host_spans:
+        if s.start >= t0:
+            host[s.name] += s.end - s.start
+    for name, ns in sorted(host.items()):
+        print(f"{name}: {ns / 1e6 / args.steps:.3f} ms a step (host)")
     print(f"trace written to {path} (open in Perfetto or chrome://tracing)")
-    return bench, path
+    return recorder, path
 
 
 if __name__ == "__main__":

@@ -30,6 +30,7 @@ Usage, on a machine with a CUDA card:
         --logdir runs/paper128
     python -m spair_pytorch_tpu_torch.train --data native --steps 2000
     torchrun --nproc-per-node 4 -m spair_pytorch_tpu_torch.train --mesh
+    python -m spair_pytorch_tpu_torch.train --spans --steps 2000
 
 The ``'pallas_v3'`` compositor (K3/K4) is reached through the config, as in
 the JAX package: ``train(PRESETS['paper128'](render_backend='pallas_v3'))``.
@@ -148,20 +149,24 @@ def train(cfg: SpairConfig,
           eval_batches: int = 4,
           steps_per_call: int = 1,
           calibrate_at_end: bool = False,
+          spans: bool = False,
           device="cuda"):
     """Train ``cfg`` for ``steps`` steps on ``device``; returns the final
     TrainState. Arguments as the JAX package's ``train``. With
     ``use_mesh`` the process joins the data-parallel world of
     ``parallel/mesh.py::make_mesh`` (and ends it on return if it started
     it); ``device`` then names the device type, each rank computing on its
-    own device."""
+    own device. With ``spans`` the step records its tiles
+    (``make_train_step(..., spans=True)``, ``utils/spans.py``), and each
+    metrics flush logs every tile's mean ms a step since the last flush as
+    ``spans/<tile>_ms``."""
     mesh = make_mesh(device) if use_mesh else None
     try:
         return _train(cfg, steps, logdir, hdf5, data_source, mesh,
                       checkpoint_every, metrics_every, log_images_every,
                       log_figures_every, log_flush_every, halt_on_nan,
                       resume, verbose, digits, eval_every, eval_batches,
-                      steps_per_call, calibrate_at_end,
+                      steps_per_call, calibrate_at_end, spans,
                       mesh.device if mesh is not None else device)
     finally:
         if mesh is not None:
@@ -171,7 +176,7 @@ def train(cfg: SpairConfig,
 def _train(cfg, steps, logdir, hdf5, data_source, mesh, checkpoint_every,
            metrics_every, log_images_every, log_figures_every,
            log_flush_every, halt_on_nan, resume, verbose, digits, eval_every,
-           eval_batches, steps_per_call, calibrate_at_end, device):
+           eval_batches, steps_per_call, calibrate_at_end, spans, device):
     # data generated on the device runs steps_per_call steps a call; the
     # host sources (HDF5, native) one, as in the JAX package
     fused = hdf5 is None and data_source == "device"
@@ -219,10 +224,11 @@ def _train(cfg, steps, logdir, hdf5, data_source, mesh, checkpoint_every,
             print(f"digit source: {src}")
         bank = torch.as_tensor(digit_bank(src, dcfg.patch_hw), device=device)
         step_fn = make_train_step(cfg, mesh, datagen=(dcfg, bank),
-                                  steps_per_call=spc)
+                                  steps_per_call=spc, spans=spans)
         data = None
     else:
-        step_fn = make_train_step(cfg, mesh, with_detection=True)
+        step_fn = make_train_step(cfg, mesh, with_detection=True,
+                                  spans=spans)
         data = make_data(cfg, hdf5, source=data_source, digits=digits,
                          device=device)
     rem_step_fn = None  # built for a last window shorter than spc
@@ -256,7 +262,20 @@ def _train(cfg, steps, logdir, hdf5, data_source, mesh, checkpoint_every,
                 write_scalars(pit + j, {k: host[i][col]
                                         for i, k in enumerate(keys)})
                 col += 1
+        last = pending[-1][0] + pending[-1][1] - 1
         pending.clear()
+        for fn in (step_fn, rem_step_fn):
+            if fn is not None and fn.spans is not None:
+                write_spans(last, fn.spans)
+
+    def write_spans(pit, recorder):
+        # the tiles' mean ms a step since the last flush (one read of the
+        # recorder, after the metrics' transfer has synchronised)
+        summary = recorder.summary()
+        recorder.reset()
+        if writer is not None and summary["steps"]:
+            writer.scalars(pit, {f"spans/{t}_ms": v["ms"]
+                                 for t, v in summary["tiles"].items()})
 
     t_last = time.perf_counter()
     images_done = 0
@@ -273,7 +292,8 @@ def _train(cfg, steps, logdir, hdf5, data_source, mesh, checkpoint_every,
             # the last window: exactly the steps asked for
             if rem_step_fn is None:
                 rem_step_fn = make_train_step(cfg, mesh, datagen=(dcfg, bank),
-                                              steps_per_call=steps - done)
+                                              steps_per_call=steps - done,
+                                              spans=spans)
             n_sub = steps - done
             state, scalars = rem_step_fn(state)
         else:
@@ -487,6 +507,9 @@ def main(argv=None):
                    choices=["reference", "free"],
                    help="'reference': the N(7.0, 0.5) h/w-logit prior; "
                         "'free': N(0, 1) (config.free_box_priors)")
+    p.add_argument("--spans", action="store_true",
+                   help="record the step's tiles (utils/spans.py) and log "
+                        "spans/<tile>_ms at each metrics flush")
     args = p.parse_args(argv)
 
     overrides = {}
@@ -519,7 +542,7 @@ def main(argv=None):
                  resume=not args.no_resume, digits=args.digits,
                  eval_every=args.eval_every, eval_batches=args.eval_batches,
                  steps_per_call=args.steps_per_call,
-                 calibrate_at_end=args.calibrate_at_end)
+                 calibrate_at_end=args.calibrate_at_end, spans=args.spans)
 
 
 if __name__ == "__main__":

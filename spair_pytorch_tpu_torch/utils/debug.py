@@ -1,6 +1,7 @@
 """Training diagnostics (counterpart of ``spair_pytorch_tpu/utils/
 debug.py``): per-head gradient norms, the NaN hunter, the whole-program NaN
-check, scoped timers and the gradient views the figures plot.
+check and the gradient views the figures plot (the step's spans are
+``utils/spans.py``).
 
 ``nan_hunter`` checks the tensors named at the forward's three sites (after
 inference, after the KL terms, after the render) once
@@ -14,17 +15,11 @@ it pushes a ``TorchDispatchMode`` that raises FloatingPointError at the
 first op, forward or backward, whose floating output holds a NaN (one
 device sync per op); ``enable_debug_nans(False)`` pops it. While off it
 costs nothing: no mode is on the stack.
-
-``Benchmark`` accumulates named spans: CUDA events on a CUDA device (the
-device's time between the span's ends, read when the totals are), the host
-clock on the CPU. Each span is also a ``torch.profiler`` range.
 """
 
 from __future__ import annotations
 
-import contextlib
-import time
-from typing import Dict, List
+from typing import Dict
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -99,57 +94,6 @@ def nan_hunter(location: str, **tensors):
         for n, t in tensors.items():
             print(f"  {n}: {t!r}")
         raise FloatingPointError(f"NaN detected at {location} in {bad}")
-
-
-class Benchmark:
-    """Named spans timed on ``device``: CUDA events on a CUDA device, the
-    host clock on the CPU."""
-
-    def __init__(self, device="cuda"):
-        self.cuda = torch.device(device).type == "cuda"
-        self._spans: Dict[str, List] = {}
-
-    @contextlib.contextmanager
-    def span(self, name: str):
-        with torch.profiler.record_function(name):
-            start = self._mark()
-            yield
-            end = self._mark()
-        self._spans.setdefault(name, []).append((start, end))
-
-    def _mark(self):
-        if not self.cuda:
-            return time.perf_counter()
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return event
-
-    def times(self, name: str) -> List[float]:
-        """Seconds of each span named ``name``, in order."""
-        if not self.cuda:
-            return [end - start for start, end in self._spans[name]]
-        out = []
-        for start, end in self._spans[name]:
-            end.synchronize()
-            out.append(start.elapsed_time(end) / 1e3)
-        return out
-
-    @property
-    def counts(self) -> Dict[str, int]:
-        return {name: len(s) for name, s in self._spans.items()}
-
-    @property
-    def totals(self) -> Dict[str, float]:
-        return {name: sum(self.times(name)) for name in self._spans}
-
-    def report(self) -> str:
-        lines = []
-        counts = self.counts
-        for name, total in sorted(self.totals.items()):
-            n = counts[name]
-            lines.append(f"{name}: total {total:.4f}s over {n} "
-                         f"(avg {total / n * 1e3:.2f} ms)")
-        return "\n".join(lines)
 
 
 def grad_norms_by_head(model: torch.nn.Module) -> Dict[str, torch.Tensor]:

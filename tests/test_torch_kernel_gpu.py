@@ -1580,6 +1580,190 @@ def test_captured_refiner_equals_eager(cuda, b):
     assert again["boxes"].data_ptr() != first["boxes"].data_ptr()
 
 
+# the span recorder (utils/spans.py) in the captured step: marks inside the
+# graphs, nothing else changed
+
+def spans_run(cfg, datagen, on, bias=0.0, calls=(1, 1, 1)):
+    """One-step calls of a captured step, spans on or off, from a fresh
+    state (the presence head's bias shifted by ``bias``): (state, metrics,
+    step function)."""
+    from spair_pytorch_tpu_torch.parallel import make_train_step
+
+    state = shifted_state(cfg, bias)
+    fn = make_train_step(cfg, datagen=datagen, spans=on)
+    metrics = [fn(state)[1] for _ in calls]
+    torch.cuda.synchronize()
+    return state, metrics, fn
+
+
+SPAN_CASES = {"plain": lambda: (main_path(), 0.0),
+              "segmented-full": lambda: (topk_preset("reference"), 0.0),
+              "segmented-topk": lambda: (topk_preset("reference"),
+                                         SPARSE_BIAS)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SPAN_CASES))
+def test_captured_step_with_spans_equals_without(deterministic, case):
+    """3 steps of the captured step (its eager first step and 2 replays)
+    with spans on against off: every metric, parameter, Adam tensor, the
+    step and the generator bit for bit; the recorder saw every step and
+    every tile of it (gap.branch in a segmented step)."""
+    from spair_pytorch_tpu_torch.utils import spans
+
+    (cfg, datagen), bias = SPAN_CASES[case]()
+    on, off = (spans_run(cfg, datagen, flag, bias) for flag in (True, False))
+    assert off[2].spans is None
+    for got, want in zip(on[1], off[1]):
+        assert list(got) == list(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    for got, want in zip(state_tensors(on[0]), state_tensors(off[0])):
+        assert torch.equal(got, want)
+    assert torch.equal(on[0].generator.get_state(),
+                       off[0].generator.get_state())
+    r = on[2].spans.read()
+    assert r.steps == 3
+    tiles = [t for t in spans.TILES
+             if case != "plain" or t != "gap.branch"]
+    assert [list(d) for _, d in r.step_tiles()[:2]] == [tiles, tiles]
+    names = [s.name for s in on[2].spans.host_spans]
+    want = (["spair.capture.step"] if case == "plain" else
+            ["spair.capture.A", "spair.capture.B.topk",
+             "spair.capture.B.full"])
+    assert [n for n in names if n.startswith("spair.capture.")] == want
+    assert names.count("spair.call") == 3
+
+
+def replay_kernels(fn, state):
+    """Names of the device kernels of one call of one replayed step, in
+    the order they started, from the profiler (no fills or copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(state)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    events.sort(key=lambda e: e.time_range.start)
+    # fills and copies left out: the profiler names a graph's fill node
+    # 'memset32' or 'Memset (Device)' from one replay to the next, and
+    # does not report them alike
+    return [e.name for e in events if "memset" not in e.name.lower()
+            and "memcpy" not in e.name.lower()], prof
+
+
+@pytest.mark.gpu
+def test_spans_add_only_their_marks_to_the_graph(cuda):
+    """The main path's captured step replayed under the profiler with
+    spans on and off: the graph with spans holds the graph without them,
+    kernel for kernel in order, plus one ``spair_span_mark`` a tile (16 a
+    step); the graph without spans holds no mark."""
+    from spair_pytorch_tpu_torch.parallel import make_train_step
+    from spair_pytorch_tpu_torch.utils import spans
+
+    cfg, datagen = main_path()
+    names = {}
+    for on in (False, True):
+        state = shifted_state(cfg, 0.0)
+        fn = make_train_step(cfg, datagen=datagen, spans=on)
+        fn(state)
+        names[on], _ = replay_kernels(fn, state)
+    marks = [n for n in names[True] if n == "spair_span_mark"]
+    assert len(marks) == len(spans.TILES) - 1
+    assert "spair_span_mark" not in names[False]
+    rest = [n for n in names[True] if n != "spair_span_mark"]
+    at = next((j for j, (a, b) in enumerate(zip(rest, names[False]))
+               if a != b), min(len(rest), len(names[False])))
+    assert rest == names[False], (len(rest), len(names[False]), at,
+                                  rest[max(0, at - 2):at + 3],
+                                  names[False][max(0, at - 2):at + 3])
+
+
+def clock_probes(first, n):
+    """``n`` empty profiler ranges, numbered from ``first``, each bracketed
+    by the host clock: [(name, t0, t1, t2, t3)], read before and after
+    entering the range and before and after leaving it."""
+    import time
+
+    out = []
+    for i in range(first, first + n):
+        name = f"spans.clock_probe.{i}"
+        rf = torch.profiler.record_function(name)
+        t0 = time.perf_counter_ns()
+        rf.__enter__()
+        t1 = t2 = time.perf_counter_ns()
+        rf.__exit__(None, None, None)
+        t3 = time.perf_counter_ns()
+        out.append((name, t0, t1, t2, t3))
+    return out
+
+
+def trace_minus_host_ns(prof, probes):
+    """The profiler's clock less ``perf_counter_ns``, from ``clock_probes``:
+    each probe's range starts between t0 and t1 and ends between t2 and t3,
+    so the offset lies in the intersection of those bounds over all probes;
+    (its middle, the intersection's width)."""
+    times = {e.name: e.time_range for e in prof.events()
+             if e.name.startswith("spans.clock_probe.")}
+    lo, hi = -float("inf"), float("inf")
+    for name, t0, t1, t2, t3 in probes:
+        ts, te = times[name].start * 1e3, times[name].end * 1e3
+        lo = max(lo, ts - t1, te - t3)
+        hi = min(hi, ts - t0, te - t2)
+    return (lo + hi) / 2, hi - lo
+
+
+@pytest.mark.gpu
+def test_span_marks_lie_on_the_host_clock(cuda):
+    """Two replayed steps of the main path under the profiler: each
+    ``spair_span_mark`` kernel starts within 20 us of its ring timestamp
+    taken to the host clock by the recorder's offset, and to the trace's
+    clock by empty profiler ranges bracketed by the host clock
+    (``trace_minus_host_ns``). The card's ``%globaltimer`` steps now and
+    then (by ~0.55 ms, about every 20 s on an H100): an attempt in which
+    the difference jumps by over 100 us between two marks saw a step, and
+    is made again, at most twice."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spair_pytorch_tpu_torch.parallel import make_train_step
+
+    cfg, datagen = main_path()
+    state = shifted_state(cfg, 0.0)
+    fn = make_train_step(cfg, datagen=datagen, steps_per_call=2, spans=True)
+    fn(state)
+    torch.cuda.synchronize()
+    rec = fn.spans
+    stepped = []
+    for _ in range(3):
+        rec.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            probes = clock_probes(0, 50)
+            fn(state)
+            torch.cuda.synchronize()
+            probes += clock_probes(50, 50)
+        r = rec.read()
+        assert r.steps == 2
+        ring = sorted(int(v) for _, row in r.rows() for v in row if v)
+        marks = sorted(e.time_range.start for e in prof.events()
+                       if e.name == "spair_span_mark"
+                       and e.device_type == DeviceType.CUDA)
+        assert len(marks) == len(ring) == 2 * 16
+        to_trace, width = trace_minus_host_ns(prof, probes)
+        diff = np.array(marks) * 1e3 - (np.array(ring) + r.offset_ns
+                                        + to_trace)
+        if np.abs(np.diff(diff)).max() < 100e3:
+            break
+        stepped.append(diff)
+    assert np.abs(diff).max() < 20e3, (diff, width, stepped)
+
+
 @pytest.mark.gpu
 def test_a_host_read_in_the_step_makes_the_capture_raise(cuda, monkeypatch):
     """A host read injected into the step: the warm-up step runs it

@@ -1,4 +1,4 @@
-"""The port's export CLI, NaN hunter, Benchmark, memory report and
+"""The port's export CLI, NaN hunter, span recorder, memory report and
 profiling CLI, on the CPU; the export against the JAX package's
 ``to_torch_state_dict`` key for key and bit for bit."""
 
@@ -15,7 +15,7 @@ from spair_pytorch_tpu_torch import export, profile
 from spair_pytorch_tpu_torch.config import config_to_json
 from spair_pytorch_tpu_torch.models.spair import forward
 from spair_pytorch_tpu_torch.parallel import create_train_state
-from spair_pytorch_tpu_torch.utils import debug, memory
+from spair_pytorch_tpu_torch.utils import debug, memory, spans
 from spair_pytorch_tpu_torch.utils.checkpoint import CheckpointManager
 from spair_pytorch_tpu_torch.utils.interop import load_jax_params
 from tests.test_model import tiny_config
@@ -146,16 +146,27 @@ def test_forward_hunter_catches_a_nan_input():
 
 
 def test_benchmark_spans_accumulate():
-    b = debug.Benchmark("cpu")
-    for _ in range(2):
-        with b.span("op"):
-            sum(range(1000))
-    with b.span("other"):
-        pass
-    assert b.counts == {"op": 2, "other": 1}
-    assert len(b.times("op")) == 2 and all(t >= 0 for t in b.times("op"))
-    assert b.totals["op"] == pytest.approx(sum(b.times("op")))
-    assert "op: total" in b.report() and "over 2" in b.report()
+    """The span recorder's host spans (``utils/spans.py``): nested spans
+    keep their parents and the step they began at, and each is a profiler
+    range."""
+    rec = spans.Spans()
+    with torch.profiler.profile() as prof:
+        for _ in range(2):
+            with rec.host("op"):
+                with rec.host("inner"):
+                    sum(range(1000))
+            rec.next_step()
+        with rec.host("other"):
+            pass
+    got = [(s.name, s.parent, s.step) for s in rec.host_spans]
+    ops = [s.id for s in rec.host_spans if s.name == "op"]
+    assert got == [("inner", ops[0], 0), ("op", 0, 0), ("inner", ops[1], 1),
+                   ("op", 0, 1), ("other", 0, 2)]
+    assert all(s.end >= s.start for s in rec.host_spans)
+    assert rec.host_seconds("op") == pytest.approx(sum(
+        s.end - s.start for s in rec.host_spans if s.name == "op") / 1e9)
+    names = [e.name for e in prof.events()]
+    assert names.count("op") == 2 and names.count("inner") == 2
 
 
 def test_memory_reports_without_a_card():
@@ -164,12 +175,15 @@ def test_memory_reports_without_a_card():
 
 
 def test_profile_writes_a_trace(tmp_path):
-    bench, path = profile.main(["--preset", "small48", "--steps", "1",
-                                "--warmup", "0", "--out", str(tmp_path),
-                                "--device", "cpu"])
-    assert bench.counts == {"train_step": 1}
+    """The profiling CLI on the CPU: its recorder's tiles over the profiled
+    step, and the program's host spans and span marks in the trace."""
+    recorder, path = profile.main(["--preset", "small48", "--steps", "1",
+                                   "--warmup", "0", "--out", str(tmp_path),
+                                   "--device", "cpu"])
+    summary = recorder.summary()
+    assert summary["steps"] == 1 and "fronts" in summary["tiles"]
     with open(path) as f:
         trace = json.load(f)
     names = {e.get("name") for e in trace["traceEvents"]}
-    assert "train_step" in names
+    assert {"spair.call", "spair.step", "spair_span_mark"} <= names
     assert any(str(n).startswith("aten::") for n in names)
