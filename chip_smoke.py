@@ -262,6 +262,16 @@ random weights from the preset's seed:
                 shares, each variant's bound, K1 on the same glimpses,
                 K5's launches over the replays; the plain base timed at
                 both batches. Run before the failed-capture checks.
+ 23. ordered    ordered mode's kernels (csrc/composite_ordered.cu) on the
+                objects of a quality b32 step past the training wheel: the
+                forward against the plain scan and the backward's two
+                kernels against their plain version; each timed over a
+                captured graph beside its bound; the composite's forward
+                and backward (sort, gather, kernels) against the plain scan
+                under autograd, captured, in turns; quality's captured
+                train step with the kernels and with the plain scan
+                ('xla'), in turns: ms a step, peak memory, and the
+                kernels' launches over the replays.
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
 cuDNN convs in full f32), so kernels and plain versions are compared on the
@@ -1149,12 +1159,12 @@ class LaunchSizes:
     """While active, records the object count N of every K1/K2 launch and
     of every ordered composite, without counting a launch: wraps
     ``composite.py``'s ``_launch_forward`` / ``_launch_backward`` and
-    ``render.py``'s ``composite_ordered``."""
+    ``render.py``'s ``composite_over``."""
 
     def __init__(self, K, R):
         self.targets = [(K, "_launch_forward", "K1"),
                         (K, "_launch_backward", "K2"),
-                        (R, "composite_ordered", "ordered")]
+                        (R, "composite_over", "ordered")]
         self.sizes = {label: [] for _, _, label in self.targets}
 
     def __enter__(self):
@@ -1238,6 +1248,7 @@ def options_phase(K, V, card, dev):
     from spair_pytorch_tpu_torch.parallel import create_train_state
     from spair_pytorch_tpu_torch.parallel.train_step import train_step
     from spair_pytorch_tpu_torch.train import train
+    from spair_pytorch_tpu_torch.ops.kernels import composite_ordered as O
     t_phase = time.perf_counter()
 
     # (a) K3/K4 past 64 grid rows: band starts in device memory
@@ -1319,6 +1330,7 @@ def options_phase(K, V, card, dev):
             return made[-1]
         with tempfile.TemporaryDirectory() as logdir:
             K.composite_forward.launches = K.composite_backward.launches = 0
+            O.ordered_forward.launches = O.ordered_backward.launches = 0
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             train_module.make_train_step = keep
@@ -1335,6 +1347,8 @@ def options_phase(K, V, card, dev):
                 train_module.make_train_step = real_make
             launches = (K.composite_forward.launches,
                         K.composite_backward.launches)
+            ordered = (O.ordered_forward.launches,
+                       O.ordered_backward.launches)
             with open(f"{logdir}/metrics.jsonl") as f:
                 rows = [json.loads(line) for line in f]
         losses = [r["losses/total"] for r in rows if "losses/total" in r]
@@ -1356,13 +1370,18 @@ def options_phase(K, V, card, dev):
                          f"{ms:.3f} ms/step, {b / ms * 1e3:.1f} img/s (CUDA "
                          f"events around train(), set-up and first step "
                          f"included; {card}); launches K1 {launches[0]}, K2 "
-                         f"{launches[1]}; composites in Python (eager, "
+                         f"{launches[1]}, ordered forward {ordered[0]}, "
+                         f"backward {ordered[1]}; composites in Python "
+                         f"(eager, "
                          f"warm-up and capture) on N = "
                          f"{sorted(set(sizes))}{branches}")
         if len(losses) != steps or not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"{name}: losses {losses}")
         if cfg.render_mode == "reference" and min(launches) < steps:
             raise AssertionError(f"{name} did not launch K1/K2 every step")
+        if cfg.render_mode == "ordered" and min(ordered) < steps:
+            raise AssertionError(f"{name} did not launch the ordered "
+                                 f"kernels every step")
 
     # (d) one train step with the conv codec and with the self-attention
     base = PRESETS["paper128"]()
@@ -2636,7 +2655,7 @@ def forward_phase(card, dev):
 # phase 19: render_topk captured as segments around the render's top-K
 # branch (parallel/captured.py::SegmentedStep, SegmentedForward), at the
 # presets' widths and batch: cluttered_fine (reference mode, K1/K2 on N = 32
-# or 256) and quality (ordered mode, plain torch)
+# or 256) and quality (ordered mode, its kernels)
 TOPK_RUNS = (("cluttered_fine", "reference"), ("quality", "ordered"))
 TOPK_SPARSE_BIAS = -8.0  # the presence head's bias shift: ~8 of 256 live
 TOPK_STEPS = 4           # steps a call
@@ -3613,6 +3632,216 @@ def anatomy_phase(K, card, dev):
             "path_launches": {}}
 
 
+# phase 23: ordered mode's kernels (csrc/composite_ordered.cu) on the
+# objects a quality b32 step hands its compositor
+ORDERED_BAR, ORDERED_GRAD_BAR = 1e-5, 1e-4
+ORDERED_REPS = 10    # launches a captured graph when timing one kernel
+ORDERED_STEPS = 5    # captured quality steps a call in the step's timing
+
+
+def quality_objects(dev, seed=2300):
+    """(cfg, (color, alpha, depth, boxes, gate)) as ``render_objects``
+    hands them to ordered mode's compositor: one quality b32 batch from the
+    port's random weights at step 1000, past the training wheel."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.data import generate_batch, glyph_bank
+    from spair_pytorch_tpu_torch.models.render import render_objects
+    from spair_pytorch_tpu_torch.models.spair import (compute_dtype,
+                                                      infer_latents)
+    from spair_pytorch_tpu_torch.parallel import create_train_state
+    from spair_pytorch_tpu_torch.train import data_config
+    cfg = PRESETS["quality"]()
+    state = create_train_state(cfg, seed=seed, device=dev)
+    state.step.fill_(1000)
+    bank = torch.as_tensor(glyph_bank((14, 14)), device=dev)
+    x, _, _ = generate_batch(state.generator, bank, cfg.batch_size,
+                             data_config(cfg))
+    with torch.no_grad():
+        z = infer_latents(state.model, cfg, x, state.step, state.generator)
+        objects, _ = render_objects(state.model, cfg, z["z_attr"],
+                                    z["z_where"], z["z_depth"], z["z_pres"],
+                                    compute_dtype(cfg))
+    return cfg, bank, tuple(objects[k] for k in ("color", "alpha", "depth",
+                                                 "boxes", "gate"))
+
+
+def ordered_bound(b, n, c, live, pairs, forward, glimpse=(OH, OW),
+                  canvas_hw=HW):
+    """(least ms, 'bytes' or 'operations', bytes moved) of ordered mode's
+    forward, or of its backward's two kernels: the glimpses of the ``live``
+    objects read once, boxes and gate read, the canvas (forward) or its
+    cotangent and every object's glimpse gradient and box gradient
+    (backward) written or read once, against the HBM rate; and an estimate
+    of the arithmetic per (object, support pixel) pair, (C + 1) pasted
+    values of 7 operations and ~4 C + 4 for the over operator (three times
+    that in the backward: its two walks and the transposed taps) against
+    the f32 peak."""
+    plane = glimpse[0] * glimpse[1]
+    glimpses = live * (c + 1) * plane * 4
+    small = b * n * (4 + 1) * 4
+    canvas = b * c * canvas_hw[0] * canvas_hw[1] * 4
+    ops = pairs * (7 * (c + 1) + 4 * c + 4)
+    if forward:
+        moved = glimpses + small + canvas
+    else:
+        moved = glimpses + small + canvas + b * n * ((c + 1) * plane + 4) * 4
+        ops *= 3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", moved
+    return t_ops, "operations", moved
+
+
+def ordered_phase(card, dev):
+    """Phase 23: ordered mode's forward kernel and its backward's two
+    kernels at quality's b32 shapes, on the objects of a quality step past
+    the training wheel: held against their plain versions; timed alone,
+    CUDA events over a captured graph of ORDERED_REPS launches, beside
+    their bound; the whole composite forward and backward (sort, gather,
+    kernels) against the plain scan under autograd, each captured, in
+    turns; then quality's captured train step with the kernels
+    (render_backend 'auto') and with the plain scan ('xla'), in turns: ms a
+    step, peak memory and the kernels' launches over the replays. Returns
+    the summary row of the ordered kernels."""
+    from spair_pytorch_tpu_torch.ops.kernels import composite as K
+    from spair_pytorch_tpu_torch.ops.kernels import composite_ordered as O
+    from spair_pytorch_tpu_torch.parallel import make_train_step
+    from spair_pytorch_tpu_torch.parallel.train_step import \
+        create_train_state
+    from spair_pytorch_tpu_torch.train import data_config
+    t_phase = time.perf_counter()
+    cfg, bank, (color, alpha, depth, boxes, gate) = quality_objects(dev)
+    hw, glimpse = tuple(cfg.image_shape[1:]), tuple(cfg.object_shape)
+    b, n, c = color.shape[:3]
+    order = torch.argsort(-depth[..., 0], dim=1, stable=True)
+
+    def take(t):
+        return torch.take_along_dim(
+            t, order.reshape((b, n) + (1,) * (t.ndim - 2)), dim=1).contiguous()
+    sc, sa, sb, sg = take(color), take(alpha), take(boxes), take(gate)
+    dout = torch.randn((b, c) + hw, generator=torch.Generator(
+        device=dev).manual_seed(23), device=dev)
+    listed = K.cull_tiles(sb, hw, glimpse, O.TILE, sg).sum(-1).float()
+    live = int(gate.sum())
+    pairs = support_pairs(sb, gate=sg, glimpse=glimpse, canvas_hw=hw)
+    phase("ordered", f"quality b{b}: {live} live objects of {b * n}, "
+                     f"pasted alpha up to {float(sa.max()):.6f} (glimpse); "
+                     f"a 32x8 tile lists {float(listed.mean()):.1f} objects "
+                     f"on average, {int(listed.max())} at most; "
+                     f"{pairs:.0f} (object, support pixel) pairs")
+
+    with torch.no_grad():
+        err_f = check("ordered", f"forward B={b} N={n}", ORDERED_BAR,
+                      (O.ordered_forward(sc, sa, sb, hw, sg),),
+                      (O.composite_ordered(color, alpha, depth, boxes, hw,
+                                           cfg.render_chunk),),
+                      names=("out",))
+        err_b = check("ordered", f"backward B={b} N={n}", ORDERED_GRAD_BAR,
+                      O.ordered_backward(sc, sa, sb, hw, dout, sg),
+                      O.ordered_backward_plain(sc, sa, sb, hw, dout, sg),
+                      names=("dcolor", "dalpha", "dbox"))
+
+    def reps(fn):
+        return lambda: [fn() for _ in range(ORDERED_REPS)]
+    with torch.no_grad():
+        kernels = {
+            "forward": reps(lambda: O.ordered_forward(sc, sa, sb, hw, sg)),
+            "backward": reps(lambda: O.ordered_backward(sc, sa, sb, hw, dout,
+                                                        sg))}
+        times = {k: [graph_ms(fn, reps=3) / ORDERED_REPS for _ in range(3)]
+                 for k, fn in kernels.items()}
+    bounds = {k: ordered_bound(b, n, c, live, pairs, k == "forward",
+                               glimpse, hw) for k in kernels}
+    for k, ts in times.items():
+        t = min(ts)
+        bms, by, moved = bounds[k]
+        phase("ordered", f"{k} kernel{'s' if k == 'backward' else ''} "
+                         f"B={b} N={n}: "
+                         f"{', '.join(f'{x:.4f}' for x in ts)} ms (CUDA "
+                         f"events over a graph of {ORDERED_REPS} launches, "
+                         f"3 replays, three times); bound {bms:.4f} ms "
+                         f"({by}, {moved / 1e6:.1f} MB), {bms / t:.1%} of "
+                         f"it; achieved {moved / t / 1e6:.1f} GB/s ({card})")
+
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (color, alpha, boxes)]
+
+    def plain_fb():
+        out = O.composite_ordered(leaves[0], leaves[1], depth, leaves[2], hw,
+                                  cfg.render_chunk)
+        torch.autograd.grad(out, leaves, dout)
+
+    def over_fb():
+        out = O.composite_over(leaves[0], leaves[1], depth, leaves[2], hw,
+                               pres_gate=gate, chunk=cfg.render_chunk)
+        torch.autograd.grad(out, leaves, dout)
+    fb = [graph_ms(f, reps=3) for f in (plain_fb, over_fb, over_fb,
+                                        plain_fb)]
+    phase("ordered", f"composite forward + backward B={b} N={n}, captured:"
+                     f" plain scan {fb[0]:.3f}, {fb[3]:.3f} ms; kernels "
+                     f"(sort, gather, kernels) {fb[1]:.4f}, {fb[2]:.4f} ms "
+                     f"({(fb[0] + fb[3]) / (fb[1] + fb[2]):.1f}x) ({card})")
+    del leaves
+    torch.cuda.empty_cache()
+
+    # the captured quality step, kernels ('auto') and plain scan ('xla')
+    dcfg = data_config(cfg)
+    step_ms, peaks, launches = {}, {}, {}
+    for backend in ("xla", "auto", "auto", "xla"):
+        run = dataclasses.replace(cfg, render_backend=backend)
+        state = create_train_state(run, seed=2301, device=dev)
+        state.step.fill_(1000)
+        O.ordered_forward.launches = O.ordered_backward.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step = make_train_step(run, datagen=(dcfg, bank),
+                               steps_per_call=ORDERED_STEPS)
+        state, _ = step(state)
+        state, _ = step(state)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(2):
+            state, m = step(state)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.setdefault(backend, []).append(
+            start.elapsed_time(end) / (2 * ORDERED_STEPS))
+        peaks[backend] = torch.cuda.max_memory_allocated(dev)
+        launches[backend] = (O.ordered_forward.launches,
+                             O.ordered_backward.launches)
+        if not bool(torch.isfinite(m["losses/total"]).all()):
+            raise AssertionError(f"quality {backend}: a loss is not finite")
+        del step, state, m
+    steps = 4 * ORDERED_STEPS   # the first call's eager step, replays
+    phase("ordered", f"quality b{b} captured train step, past the wheel: "
+                     f"kernels ('auto') "
+                     f"{', '.join(f'{x:.3f}' for x in step_ms['auto'])} ms, "
+                     f"plain scan ('xla') "
+                     f"{', '.join(f'{x:.3f}' for x in step_ms['xla'])} ms a "
+                     f"step; peak memory allocated {peaks['auto']} B against "
+                     f"{peaks['xla']} B; ordered launches (forward, "
+                     f"backward) over {steps} steps: 'auto' "
+                     f"{launches['auto']}, 'xla' {launches['xla']} ({card})")
+    if launches["auto"] != (steps, steps) or launches["xla"] != (0, 0):
+        raise AssertionError(f"ordered launches {launches}")
+    phase("ordered", f"phase 23 in {time.perf_counter() - t_phase:.1f} s")
+    return {"name": "composite_ordered", "route": "cuda",
+            "source": "spair_pytorch_tpu_torch/csrc/composite_ordered.cu",
+            "replaces": "none: the JAX scan is plain jnp "
+                        "(spair_pytorch_tpu/models/render.py:136)",
+            "launches": launches["auto"][0],
+            "max_abs_err": max(err_f, err_b),
+            "ms": min(times["forward"]), "bwd_ms": min(times["backward"]),
+            "plain_ms": (fb[0] + fb[3]) / 2,
+            "bound_ms": bounds["forward"][0],
+            "bwd_bound_ms": bounds["backward"][0],
+            "bound_by": bounds["forward"][1], "library_ms": None}
+
+
 def failed_capture_phase(dev):
     """Phases 20(c), 17(j) and 18(d), last in the run since each leaves a
     failed capture behind: a host read injected into the captured mesh
@@ -3912,6 +4141,9 @@ def main():
 
     # 22. the windowed matmul paste (K5) through its entry point
     anatomy_row = anatomy_phase(K, card, dev)
+
+    # 23. ordered mode's kernels at quality's shapes and in its step
+    ordered_row = ordered_phase(card, dev)
     failed_capture_phase(dev)
     # each path's own launches, from its own run with the counts set to 0
     # just before it: `launches` is the main path's (phase 9, K1/K2) or the
@@ -3952,7 +4184,7 @@ def main():
          "bound_ms": same["bound"][k][0], "bound_by": same["bound"][k][1],
          "library_ms": None, "path_launches": path}
         for (name, source, k, where, n, err), path in zip(rows, paths)]
-        + [anatomy_row]}))
+        + [anatomy_row, ordered_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,8 +9,12 @@ CUDA forward and backward kernels K1 and K2 (``render_backend`` 'pallas' or
 compositor under autograd ('xla'); or, for 'pallas_v3', from
 ``ops/kernels/composite_v3.py::composite_v3``, the band-clipped kernels K3
 and K4, which compute the same function for the model's boxes.
-``render_mode='ordered'`` is true depth-ordered alpha-over compositing
-(``composite_ordered``), plain PyTorch on every backend.
+``render_mode='ordered'`` is true depth-ordered alpha-over compositing,
+from ``ops/kernels/composite_ordered.py``: ``composite_over``, the sort and
+gather in PyTorch and the autograd Function over the CUDA forward and
+backward kernels of ``csrc/composite_ordered.cu`` on CUDA tensors, for
+every ``render_backend`` but 'xla'; ``composite_ordered``, the plain scan
+under autograd, for 'xla' and on CPU tensors.
 ``composite_ungated`` is the same choice for the paths that composite
 outside ``render`` (split refinement, the figures' gradient views).
 
@@ -40,10 +44,11 @@ import torch
 from spair_pytorch_tpu_torch.config import SpairConfig
 from spair_pytorch_tpu_torch.ops.backbone import grid_geometry
 from spair_pytorch_tpu_torch.ops.kernels.composite import (
-    composite, composite_forward, composite_plain, safe_boxes)
+    composite, composite_forward, composite_plain)
+from spair_pytorch_tpu_torch.ops.kernels.composite_ordered import (
+    composite_ordered, composite_over)
 from spair_pytorch_tpu_torch.ops.kernels.composite_v3 import composite_v3
 from spair_pytorch_tpu_torch.ops.math import clamped_sigmoid
-from spair_pytorch_tpu_torch.ops.stn import paste_weights
 
 _TOPK_NEEDS_GATE = (
     "render_topk requires pres_gate_threshold > 0: without the gate, "
@@ -86,56 +91,6 @@ def decode_objects(params, cfg: SpairConfig, z_attr, z_pres, z_depth,
     # to the channel-first glimpse layout (B, N, C, oh, ow)
     return tuple(torch.movedim(t, -1, 2).contiguous()
                  for t in (color, alpha, importance))
-
-
-def composite_ordered(color, alpha, z_depth_flat, z_where, image_hw,
-                      chunk: int):
-    """Depth-ordered alpha-over compositing: (B, C, H, W), un-clipped.
-
-    color (B, N, C, oh, ow), alpha (B, N, 1, oh, ow), z_depth_flat
-    (B, N, 1), z_where (B, N, 4). Objects are sorted front to back by
-    z_depth (higher is nearer; a stable sort, so equal depths keep their
-    object order) and composited with the over operator under a running
-    per-pixel transmittance:
-
-        out = sum_o T_o a_o c_o,   T_o = prod_{o' nearer} (1 - a_o'),
-
-    with each pasted alpha a_o clipped to [0, 1]. Objects are pasted
-    ``chunk`` at a time and composited one by one within a chunk; the last
-    chunk is padded with zero glimpses on the safe box [0.5, 0.5, 1, 1] (a
-    zero scale would divide 0 by 0), which are identities of the over
-    operator."""
-    b, n, c = color.shape[:3]
-    oh, ow = color.shape[-2:]
-    h, w = image_hw
-    order = torch.argsort(-z_depth_flat[..., 0], dim=1, stable=True)
-
-    def take(t):
-        return torch.take_along_dim(
-            t, order.reshape((b, n) + (1,) * (t.ndim - 2)), dim=1)
-
-    color, alpha, z_where = take(color), take(alpha), take(z_where)
-    chunk = min(chunk, n)
-    pad = (-n) % chunk
-    if pad:
-        def padn(t):
-            return torch.cat([t, t.new_zeros((b, pad) + t.shape[2:])], dim=1)
-        color, alpha = padn(color), padn(alpha)
-        safe = safe_boxes(b, pad, z_where.dtype, z_where.device)
-        z_where = torch.cat([z_where, safe], dim=1)
-    img = torch.zeros((b, c, h, w), dtype=color.dtype, device=color.device)
-    trans = torch.ones((b, 1, h, w), dtype=color.dtype, device=color.device)
-    for start in range(0, n + pad, chunk):
-        sl = slice(start, start + chunk)
-        py, px = paste_weights(z_where[:, sl], (oh, ow), (h, w))
-        glimpse = torch.cat([color[:, sl], alpha[:, sl]], dim=2)
-        tmp = torch.einsum("bnhy,bncyx->bnchx", py, glimpse)
-        pasted = torch.einsum("bnchx,bnwx->bnchw", tmp, px)
-        for k in range(pasted.shape[1]):
-            a_k = torch.clamp(pasted[:, k, c:], 0.0, 1.0)
-            img = img + trans * a_k * pasted[:, k, :c]
-            trans = trans * (1.0 - a_k)
-    return img
 
 
 def _top_k(scores, k: int):
@@ -259,7 +214,8 @@ def composite_objects(cfg: SpairConfig, objects, image_hw, topk: bool):
 
     The top-K composite is exact when no image has more than K live
     objects: gated objects have alpha exactly 0 in ordered mode, identities
-    of the over operator, and the kernels skip them in reference mode,
+    of the over operator (and the ordered kernels skip them, given the
+    gate), and the kernels skip them in reference mode,
     where den keeps the floor of all n objects (``den_floor_n``); the
     objects left out get exact zero gradients through the gather, as the
     gate gave them."""
@@ -273,7 +229,12 @@ def composite_objects(cfg: SpairConfig, objects, image_hw, topk: bool):
         args = (color, alpha, objects["depth"], boxes)
         if take is not None:
             args = tuple(map(take, args))
-        out = composite_ordered(*args, image_hw, cfg.render_chunk)
+            gate = None if gate is None else take(gate)
+        if cfg.render_backend == "xla":
+            out = composite_ordered(*args, image_hw, cfg.render_chunk)
+        else:
+            out = composite_over(*args, image_hw, pres_gate=gate,
+                                 chunk=cfg.render_chunk)
         return torch.clamp(out, 0.0, 1.0)
 
     backend = cfg.render_backend
@@ -316,7 +277,8 @@ def render(params, cfg: SpairConfig, z_attr, z_where, z_depth, z_pres,
     left out of the composite (den keeps their 1e-9 floor) and get no
     reconstruction gradient: K1 and K2 skip them; the plain compositor and
     'pallas_v3' mask their glimpses, as the JAX package does; ordered mode
-    zeroes their alpha. ``render_topk`` as the module docstring says:
+    zeroes their alpha, and its kernels (every backend but 'xla', on CUDA
+    tensors) skip them. ``render_topk`` as the module docstring says:
     ``render_objects``, the predicate read on the host (``takes_topk``),
     then ``composite_objects``."""
     objects, live_at_most_k = render_objects(params, cfg, z_attr, z_where,

@@ -15,7 +15,10 @@ The same two kernels, launched with a row band, are ``ops/kernels/
 composite_v3.py``'s K3 and K4 (``_launch_forward`` / ``_launch_backward``
 take the band). ``csrc/kernel_anatomy.cu``, the windowed matmul paste of
 ``benchmarks/kernel_anatomy.py`` (K5), is built beside them and launched by
-``benchmarks/kernel_anatomy.py::kernel_anatomy``; ``csrc/spans.cu``, the span
+``benchmarks/kernel_anatomy.py::kernel_anatomy``, and so is
+``csrc/composite_ordered.cu``, ordered mode's over operator and its
+backward, launched by ``ops/kernels/composite_ordered.py``;
+``csrc/spans.cu``, the span
 mark of ``utils/spans.py``, too, but only when a recorder first needs it.
 They are compiled with ``nvcc`` at first use into
 the build directory (``utils/compile_cache.py``: the package's ``_build/``
@@ -46,7 +49,7 @@ _EPS = 1e-9
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
            for name in ("composite_fwd", "composite_bwd", "kernel_anatomy",
-                        "spans")}
+                        "composite_ordered", "spans")}
 # built alone at their first load, never with the others: a run without
 # span marks compiles no span kernel
 ON_DEMAND = ("spans",)
@@ -171,6 +174,27 @@ def composite_backward_plain(color, alpha, importance, boxes, image_hw,
 def _backward_objects(g, boxes, dnum, dden, c: int, image_hw, row_keep=None):
     """dG (B, k, C+2, oh, ow) and dbox (B, k, 4) of k objects' glimpses g;
     ``row_keep`` (1 or B, k, H) clips their canvas rows."""
+    def cotangents(planes):
+        col, alp = planes[:, :, :c], planes[:, :, c:c + 1]
+        impe = planes[:, :, c + 1:] + _EPS
+        dn = dnum[:, None]
+        return torch.cat([dn * alp * impe,
+                          torch.sum(dn * col * impe, dim=2, keepdim=True),
+                          torch.sum(dn * alp * col, dim=2, keepdim=True)
+                          + dden[:, None]], dim=2)
+    return paste_vjp(g, boxes, image_hw, cotangents, row_keep)
+
+
+def paste_vjp(g, boxes, image_hw, cotangents, row_keep=None,
+              clamp_rule: bool = False):
+    """The VJP of pasting k objects' glimpse planes g (B, k, P, oh, ow)
+    onto the canvas: (dG (B, k, P, oh, ow), dbox (B, k, 4)) for the
+    cotangents ``cotangents(planes)`` (B, k, P, H, W) of the pasted planes
+    ``planes``. Not autograd: the box gradient uses the Pallas hat
+    derivative, -sign(src - a) where the weight is positive, with sign(0) =
+    0, as K2 and K4 do; with ``clamp_rule`` wherever |src - a| <= 1, as
+    autograd takes it through ``paste_weights`` and the ordered kernels do.
+    ``row_keep`` (1 or B, k, H) clips the rows."""
     oh, ow = g.shape[-2:]
     ih, iw = image_hw
     xt, yt, xs, ys = boxes.unbind(-1)
@@ -184,23 +208,22 @@ def _backward_objects(g, boxes, dnum, dden, c: int, image_hw, row_keep=None):
         py = py * row_keep[..., None]
 
     t = torch.einsum("bnha,bnkaq->bnkhq", py, g)
-    planes = torch.einsum("bnkhq,bnwq->bnkhw", t, px)          # (B,k,C+2,H,W)
-    col, alp = planes[:, :, :c], planes[:, :, c:c + 1]
-    impe = planes[:, :, c + 1:] + _EPS
-    dn = dnum[:, None]
-    dp = torch.cat([dn * alp * impe,
-                    torch.sum(dn * col * impe, dim=2, keepdim=True),
-                    torch.sum(dn * alp * col, dim=2, keepdim=True)
-                    + dden[:, None]], dim=2)
+    planes = torch.einsum("bnkhq,bnwq->bnkhw", t, px)          # (B,k,P,H,W)
+    dp = cotangents(planes)
 
     dt = torch.einsum("bnkhw,bnwq->bnkhq", dp, px)
     dg = torch.einsum("bnha,bnkhq->bnkaq", py, dt)
     dpy = torch.einsum("bnkhq,bnkaq->bnha", dt, g)
     dpx = torch.einsum("bnkhq,bnkhw->bnwq", t, dp)
 
-    # hat-weight derivatives, dw/dsrc = -sign(src - a) where w > 0
-    ey = -torch.sign(dy) * (py > 0)
-    ex = -torch.sign(dx) * (px > 0)
+    # hat-weight derivatives, dw/dsrc = -sign(src - a) where w > 0 (or
+    # where |src - a| <= 1)
+    if clamp_rule:
+        ey = -torch.sign(dy) * (dy.abs() <= 1)
+        ex = -torch.sign(dx) * (dx.abs() <= 1)
+    else:
+        ey = -torch.sign(dy) * (py > 0)
+        ex = -torch.sign(dx) * (px > 0)
     gy = torch.sum(dpy * ey, dim=(-2, -1))
     gys = torch.sum(dpy * ey * (src_y[..., None] - (oh - 1) * 0.5),
                     dim=(-2, -1))
@@ -353,6 +376,10 @@ def load_library(name: str) -> ctypes.CDLL:
             "spair_composite_bwd": ([ptr] * 9 + [i32] * 8 + [ptr, ptr]
                                     + [i32] * 4 + [ptr], i32),
             "spair_composite_bwd_smem": ([i32] * 7, ctypes.c_size_t)},
+        "composite_ordered": {
+            "spair_ordered_fwd": ([ptr] * 5 + [i32] * 7 + [ptr], i32),
+            "spair_ordered_bwd": ([ptr] * 8 + [i32] * 8 + [ptr], i32),
+            "spair_ordered_bwd_smem": ([i32] * 6, ctypes.c_size_t)},
         "kernel_anatomy": {
             "spair_kernel_anatomy": ([ptr] * 7 + [i32] * 9 + [f32, ptr], i32),
             "spair_kernel_anatomy_smem": ([i32] * 6, ctypes.c_size_t)},

@@ -13,8 +13,9 @@ time before its first mark. ``TILES`` lists them in step order:
   ``cell_step``, with the noise draws), ``kl`` (``independent_kl``),
   ``count_prior`` (either form), ``decoder`` (``render_objects``: the
   decoder, the gate and the branch's predicate), ``composite``
-  (``composite_objects``: K1 or K3 in reference mode, the ordered scan in
-  ordered mode, either branch), ``loss``;
+  (``composite_objects``: K1 or K3 in reference mode, the sort, gather
+  and forward kernel of ``composite_ordered.cu`` in ordered mode, either
+  branch), ``loss``;
 - backward: ``composite.bwd``, ``decoder.bwd``, ``count_prior.bwd``,
   ``kl.bwd``, ``fronts.bwd``, ``backbone.bwd``;
 - ``optimizer``: the zero-filled gradients, the gradient norms and metrics,

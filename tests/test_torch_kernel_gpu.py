@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from spair_pytorch_tpu_torch.ops.kernels import composite as K
+from spair_pytorch_tpu_torch.ops.kernels import composite_ordered as O
 from spair_pytorch_tpu_torch.ops.kernels import composite_v3 as V
 
 BARS = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -805,6 +806,238 @@ def test_reference_topk_through_the_kernels(cuda, monkeypatch, live):
     for g, w in zip(got[1:], want[1:]):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    rtol=5e-4, atol=1e-5)
+
+
+# ordered mode's kernels (csrc/composite_ordered.cu) against their plain
+# versions: the forward against composite_ordered (the scan under
+# autograd's einsums), the backward against ordered_backward_plain (the
+# kernels' algorithm as tensor code, with the hat's derivative as autograd's
+# clamp takes it, as the kernels take it: a texel exactly 1 away counts,
+# on the support's closed edge too). Each output
+# on its own scale, max |kernel - plain| / max |plain|. Forward 1e-5: the
+# kernel takes each pasted value's two row taps and two column taps in the
+# einsums' order, their multiply-adds fused as cuBLAS fuses them, so an ulp
+# a value at most, and T's product runs over up to 256 layers (the card
+# reads 0, bit for bit, at every shape here). Gradients 1e-4: the
+# transposed taps and the box terms sum the same terms in another order,
+# the box's over thousands of pixels (the card reads up to 7e-7, and 1.2e-6
+# for dbox on a quality step's own objects). Alpha stays below 1 by far more
+# than an ulp where N is large, as the model's (sigmoid(5 + 0.1 x) times
+# presence), so the clip mask cannot flip between two roundings of one
+# pasted value; the clip cases have few objects.
+ORDERED_BAR = 1e-5
+ORDERED_GRAD_BAR = 1e-4
+QUALITY = dict(b=32, n=256, c=1, g=28, hw=(128, 128))
+
+
+def ordered_inputs(seed, b, n, c, g, dev, gated=False, common=False,
+                   alpha_hi=0.999, max_scale=48 / 128):
+    """Objects in compositing order: colour in [0, 1], alpha in [0,
+    alpha_hi], centres in [0.05, 0.95] (``common``: every box over the
+    canvas's centre, so the tiles there list every object), scales in
+    [0.05, max_scale]; a gate that drops about a third, whose objects'
+    alpha is zeroed as the model zeroes it."""
+    rng = np.random.RandomState(seed)
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return torch.as_tensor(rng.uniform(lo, hi, shape).astype("f"),
+                               device=dev)
+    color, alpha = u(b, n, c, g, g), u(b, n, 1, g, g, hi=alpha_hi)
+    centres = u(b, n, 2, lo=0.45, hi=0.55) if common else \
+        u(b, n, 2, lo=0.05, hi=0.95)
+    scales = u(b, n, 2, lo=max(0.05, max_scale / 2) if common else 0.05,
+               hi=max_scale)
+    boxes = torch.cat([centres, scales], -1).contiguous()
+    gate = None
+    if gated:
+        gate = (u(b, n) > 0.33).float()
+        alpha = (alpha * gate[:, :, None, None, None]).contiguous()
+    return color, alpha, boxes, gate
+
+
+def ordered_held(color, alpha, boxes, gate, hw, dev, seed=0):
+    """The kernels against their plain versions on objects in compositing
+    order; returns the relative errors (out; dcolor, dalpha, dbox)."""
+    b, c = color.shape[0], color.shape[2]
+    dout = torch.randn((b, c) + hw, generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev)
+    f0, b0 = O.ordered_forward.launches, O.ordered_backward.launches
+    with torch.no_grad():
+        got = O.ordered_forward(color, alpha, boxes, hw, gate)
+        grads = O.ordered_backward(color, alpha, boxes, hw, dout, gate)
+        torch.cuda.synchronize()
+        # depths falling with the object index: the order as it is
+        depth = -torch.arange(color.shape[1], device=dev,
+                              dtype=torch.float32).expand(b, -1)[..., None]
+        want = O.composite_ordered(color, alpha, depth, boxes, hw, 16)
+        want_grads = O.ordered_backward_plain(color, alpha, boxes, hw, dout,
+                                              gate)
+    assert (O.ordered_forward.launches, O.ordered_backward.launches) == \
+        (f0 + 1, b0 + 1)
+    assert got.shape == want.shape
+    errs = [rel((got,), (want,))]
+    for g, w in zip(grads, want_grads):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        errs.append(rel((g,), (w,)))
+    if gate is not None:
+        dead = gate == 0
+        assert all(bool((g[dead] == 0).all()) for g in grads)
+    print("ordered rel err out, dcolor, dalpha, dbox:", errs)
+    assert errs[0] < ORDERED_BAR
+    assert max(errs[1:]) < ORDERED_GRAD_BAR
+    return errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+@pytest.mark.parametrize("n", [256, 32])
+def test_ordered_kernels_at_quality_shapes(cuda, n, gated):
+    """quality's own shapes (B=32, 128x128 canvas, 28x28 glimpses, C=1):
+    the full branch's N=256 and the top-K branch's N=32."""
+    q = dict(QUALITY, n=n)
+    inputs = ordered_inputs(n, q["b"], n, q["c"], q["g"], cuda, gated)
+    ordered_held(*inputs, q["hw"], cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+def test_ordered_kernels_with_a_tile_listing_every_object(cuda, gated):
+    """Every box over the canvas's centre at quality's shapes: the tiles
+    there list all 256 objects (two cull chunks), as cull_tiles says."""
+    q = QUALITY
+    color, alpha, boxes, gate = ordered_inputs(7, 4, q["n"], q["c"], q["g"],
+                                               cuda, gated, common=True)
+    listed = K.cull_tiles(boxes, q["hw"], (q["g"], q["g"]), O.TILE, gate)
+    live = q["n"] if gate is None else int(gate.sum(1).min())
+    assert int(listed.sum(-1).max()) >= live
+    ordered_held(color, alpha, boxes, gate, q["hw"], cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 3])
+def test_ordered_kernels_clip_alpha(cuda, c):
+    """Glimpse alpha up to 1.3, so pasted alpha passes 1 and is clipped
+    (its gradient masked), on a canvas that is no multiple of the tile and
+    boxes up to the canvas's size."""
+    inputs = ordered_inputs(20 + c, 3, 24, c, 14, cuda, alpha_hi=1.3,
+                            max_scale=1.0)
+    ordered_held(*inputs, (70, 52), cuda)
+
+
+@pytest.mark.gpu
+def test_ordered_kernels_at_pasted_alpha_exactly_one(cuda):
+    """Opaque glimpses on boxes whose source coordinates are dyadic and off
+    the texels (sy = i/2 - 1/8 on a 33-px canvas and 17-px glimpses), so
+    every interior pasted alpha is exactly 1: T falls to 0 behind them, and
+    the alpha gradient stays finite (nothing divides by 1 - a)."""
+    b, n, c, g, hw = 2, 6, 2, 17, (33, 33)
+    color, alpha, boxes, _ = ordered_inputs(5, b, n, c, g, cuda,
+                                            max_scale=0.8)
+    alpha[:, ::2] = 1.0
+    boxes[:, ::2] = torch.tensor([0.5078125, 0.5078125, 1.0, 1.0],
+                                 device=cuda)
+    errs = ordered_held(color, alpha, boxes, None, hw, cuda)
+    assert all(np.isfinite(errs))
+
+
+@pytest.mark.gpu
+def test_ordered_kernels_all_gated(cuda):
+    color, alpha, boxes, _ = ordered_inputs(3, 2, 9, 1, 14, cuda)
+    gate = torch.zeros(2, 9, device=cuda)
+    dout = torch.randn(2, 1, 32, 32, device=cuda)
+    assert bool((O.ordered_forward(color, alpha, boxes, (32, 32),
+                                   gate) == 0).all())
+    got = O.ordered_backward(color, alpha, boxes, (32, 32), dout, gate)
+    assert all(bool((t == 0).all()) for t in got)
+
+
+def held_to_the_scan(color, alpha, boxes, depth, gate, hw, dev):
+    """The differentiable entry on CUDA tensors (sort, gather, the
+    kernels) against autograd of composite_ordered: values and gradients of
+    colour, alpha (before the gate) and boxes."""
+    dout = torch.randn(color.shape[:1] + color.shape[2:3] + hw,
+                       generator=torch.Generator(device=dev).manual_seed(2),
+                       device=dev)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (color, alpha, boxes)]
+        gated = leaves[1] if gate is None else \
+            leaves[1] * gate[:, :, None, None, None]
+        out = fn(leaves[0], gated, depth, leaves[2])
+        torch.autograd.backward(out, dout)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    f0, b0 = O.ordered_forward.launches, O.ordered_backward.launches
+    got = run(lambda *a: O.composite_over(*a, hw, pres_gate=gate))
+    assert (O.ordered_forward.launches, O.ordered_backward.launches) == \
+        (f0 + 1, b0 + 1)
+    want = run(lambda *a: O.composite_ordered(*a, hw, 16))
+    assert rel(got[:1], want[:1]) < ORDERED_BAR
+    for x, y in zip(got[1:], want[1:]):
+        assert rel((x,), (y,)) < ORDERED_GRAD_BAR
+
+
+@pytest.mark.gpu
+def test_composite_over_matches_autograd_through_the_scan(cuda):
+    """With depth ties, the gate, and N = 37, no multiple of the scan's
+    chunk."""
+    b, n, c, g, hw = 3, 37, 2, 14, (48, 40)
+    color, alpha, boxes, _ = ordered_inputs(11, b, n, c, g, cuda)
+    gate = (torch.rand(b, n, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda) > 0.3).float()
+    depth = torch.rand(b, n, 1, device=cuda)
+    depth[:, 1::3] = depth[:, :1]
+    held_to_the_scan(color, alpha, boxes, depth, gate, hw, cuda)
+
+
+@pytest.mark.gpu
+def test_ordered_box_gradient_at_whole_pixels(cuda):
+    """17-px glimpses on a 33-px canvas, on boxes whose source coordinates
+    are whole texels (sy = i / 2; sy = i - 16, sx = i), where the hat's
+    derivative jumps, some on the support's edge (sy = -1, sx = 17): the
+    kernels take it as autograd's clamp passes it (a texel at distance
+    exactly 1 counts, on the edge too, where every pasted value is 0), so
+    their box gradient is the scan's; composite_common.cuh's rule (K2's)
+    would take 0 there."""
+    b, n, c, g, hw = 2, 6, 1, 17, (33, 33)
+    color, alpha, boxes, _ = ordered_inputs(9, b, n, c, g, cuda,
+                                            max_scale=0.8)
+    boxes[:, 0::2] = torch.tensor([0.5, 0.5, 1.0, 1.0], device=cuda)
+    boxes[:, 1::2] = torch.tensor([0.25, 0.75, 0.5, 0.5], device=cuda)
+    depth = torch.rand(b, n, 1, generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    held_to_the_scan(color, alpha, boxes, depth, None, hw, cuda)
+    ordered_held(color, alpha, boxes, None, hw, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["device", "dtype", "shape", "contiguous",
+                                 "channels", "dout"])
+def test_ordered_wrapper_refuses(cuda, bad):
+    color, alpha, boxes, gate = ordered_inputs(1, 2, 9, 1, 14, cuda,
+                                               gated=True)
+    hw = (32, 32)
+    dout = torch.randn(2, 1, *hw, device=cuda)
+    if bad == "dout":
+        with pytest.raises(ValueError, match="dout"):
+            O.ordered_backward(color, alpha, boxes, hw, dout[..., :16], gate)
+        return
+    error = ValueError
+    if bad == "device":
+        boxes = boxes.cpu()
+    elif bad == "dtype":
+        color, error = color.double(), TypeError
+    elif bad == "shape":
+        alpha = alpha[:, :8]
+    elif bad == "contiguous":
+        color = color.transpose(3, 4)
+    elif bad == "channels":
+        color = color.expand(2, 9, 5, 14, 14).contiguous()
+    with pytest.raises(error):
+        O.ordered_forward(color, alpha, boxes, hw, gate)
+    with pytest.raises(error):
+        O.ordered_backward(color, alpha, boxes, hw, dout, gate)
 
 
 # every int8 product of the paper128 detector, (rows, inner, out): the

@@ -39,7 +39,9 @@ from spair_pytorch_tpu_torch.models.kl import (count_prior_kl,
 from spair_pytorch_tpu_torch.models.latents import (SpairModel,
                                                     apply_self_attn)
 from spair_pytorch_tpu_torch.models.render import composite_ordered, render
-from spair_pytorch_tpu_torch.ops.kernels.composite import composite
+from spair_pytorch_tpu_torch.ops.kernels import composite_ordered as O
+from spair_pytorch_tpu_torch.ops.kernels.composite import (composite,
+                                                           cull_tiles)
 from spair_pytorch_tpu_torch.ops.stn import paste_glimpses
 from spair_pytorch_tpu_torch.parallel import create_train_state
 from spair_pytorch_tpu_torch.parallel.train_step import train_step
@@ -195,6 +197,150 @@ def test_composite_ordered_ties_composite_in_object_order():
     out = composite_ordered(color, alpha, torch.tensor([[[2.0], [2.0]]]),
                             boxes, (32, 32), 2)
     assert float(out[0, 0, 16, 16]) == pytest.approx(1.0, abs=1e-6)
+
+
+# The ordered kernels' algorithm (ops/kernels/composite_ordered.py's
+# plain versions under OrderedFunction, the path the kernels take on a
+# card) against autograd of the scan. Bar: 1e-5 of each output's own scale,
+# f32 sums of up to N layers in another order (they read ~3e-7).
+ORDERED_CASES = {  # name: (B, N, C, chunk, depth ties, gated, alpha max)
+    "clip": (2, 7, 2, 3, False, False, 1.2),
+    "alpha exactly 1": (2, 6, 2, 4, False, False, 1.0),
+    "whole pixels": (2, 6, 1, 4, False, False, 1.0),
+    "gated": (2, 9, 1, 4, False, True, 1.0),
+    "depth ties": (2, 7, 2, 3, True, False, 1.2),
+    "N past the chunk": (1, 37, 1, 16, False, True, 1.0),
+    "top-K N=32": (2, 32, 1, 16, True, True, 1.0),
+}
+# on a 33-px canvas: 17-px glimpses on these boxes sample whole texels
+# (sy = i / 2, and sy = i - 16, sx = i), where the hat's derivative jumps
+WHOLE_PIXEL_BOXES = [[0.5, 0.5, 1.0, 1.0], [0.25, 0.75, 0.5, 0.5]]
+
+
+def _ordered_case(name, hw):
+    b, n, c, chunk, ties, gated, hi = ORDERED_CASES[name]
+    rng = np.random.RandomState(len(name))
+    g = 17 if name == "whole pixels" else 8
+    color = rng.rand(b, n, c, g, g).astype("f")
+    alpha = (rng.rand(b, n, 1, g, g) * hi).astype("f")
+    depth = rng.uniform(0.5, 3.5, (b, n, 1)).astype("f")
+    if ties:
+        depth[:, 1::2] = depth[:, :1]
+    boxes = np.concatenate([rng.uniform(0.3, 0.7, (b, n, 2)),
+                            rng.uniform(0.2, 0.6, (b, n, 2))], -1).astype("f")
+    if name == "alpha exactly 1":
+        # opaque glimpses on dyadic source coordinates off the texels
+        # (sy = (28 i - 7) / 128 on 33 px, never whole): pasted alpha 1
+        alpha[:, ::2] = 1.0
+        boxes[:, ::2] = [0.5078125, 0.5078125, 1.0, 1.0]
+    if name == "whole pixels":
+        boxes[:, 0::3] = WHOLE_PIXEL_BOXES[0]
+        boxes[:, 1::3] = WHOLE_PIXEL_BOXES[1]
+    gate = (rng.rand(b, n) > 0.4).astype("f") if gated else None
+    return color, alpha, depth, boxes, gate, chunk
+
+
+def _ordered_grads(fn, color, alpha, depth, boxes, gate, hw, cot):
+    leaves = [t(v).requires_grad_(True) for v in (color, alpha, boxes)]
+    a = leaves[1] if gate is None else leaves[1] * t(gate)[:, :, None, None,
+                                                           None]
+    out = fn(leaves[0], a, t(depth), leaves[2])
+    torch.sum(out * cot).backward()
+    return [out.detach()] + [v.grad for v in leaves]
+
+
+@pytest.mark.parametrize("name", sorted(ORDERED_CASES))
+def test_ordered_kernel_algorithm_matches_autograd(name):
+    """T front to back, R back to front, the inclusive clip mask, no
+    division, the hat's derivative as autograd's clamp passes it (a texel
+    at distance exactly 1 counts): values and gradients of colour, alpha
+    (before the gate) and boxes equal autograd through
+    ``composite_ordered``."""
+    hw = (33, 33) if name in ("alpha exactly 1", "whole pixels") \
+        else (20, 24)
+    color, alpha, depth, boxes, gate, chunk = _ordered_case(name, hw)
+    if name == "alpha exactly 1":
+        pasted = O._pasted(t(color), t(alpha), t(boxes), hw)[:, ::2, -1]
+        assert float(pasted.max()) == 1.0 and int((pasted == 1.0).sum()) > 0
+    cot = torch.randn((color.shape[0], color.shape[2]) + hw,
+                      generator=torch.Generator().manual_seed(3))
+    gt = None if gate is None else t(gate)
+    got = _ordered_grads(lambda *a: O.ordered_composite(*a, hw, gt),
+                         color, alpha, depth, boxes, gate, hw, cot)
+    want = _ordered_grads(lambda *a: composite_ordered(*a, hw, chunk),
+                          color, alpha, depth, boxes, gate, hw, cot)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-5 * scale
+    if gate is not None:
+        dead = torch.as_tensor(gate) == 0
+        assert all(bool((g[dead] == 0).all()) for g in got[1:])
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+def test_cull_tiles_cover_every_pasted_pixel(gated):
+    """The kernels' cull (cull_tiles with their 32x8 tile) lists, for every
+    tile, every live object whose paste touches one of its pixels, on
+    objects in compositing order; gated objects are listed nowhere."""
+    rng = np.random.RandomState(4)
+    b, n, g, hw = 2, 40, 8, (72, 52)
+    boxes = t(np.concatenate([rng.uniform(-0.1, 1.1, (b, n, 2)),
+                              rng.uniform(0.02, 0.8, (b, n, 2))],
+                             -1).astype("f"))
+    depth = t(rng.rand(b, n).astype("f"))
+    order = torch.argsort(-depth, dim=1, stable=True)
+    boxes = torch.take_along_dim(boxes, order[..., None], dim=1)
+    gate = t((rng.rand(b, n) > 0.3).astype("f")) if gated else None
+    listed = cull_tiles(boxes, hw, (g, g), O.TILE, gate)
+    touched = paste_glimpses(torch.ones(b, n, 1, g, g), boxes, hw)[:, :, 0]
+    th, tw = O.TILE
+    ty, tx = -(-hw[0] // th), -(-hw[1] // tw)
+    pad = torch.zeros(b, n, ty * th, tx * tw)
+    pad[:, :, :hw[0], :hw[1]] = touched
+    per_tile = pad.reshape(b, n, ty, th, tx, tw).amax(dim=(3, 5)) > 0
+    per_tile = per_tile.permute(0, 2, 3, 1)               # (B, ty, tx, N)
+    if gate is not None:
+        per_tile &= (gate != 0)[:, None, None, :]
+        assert not bool(listed[(gate == 0)[:, None, None, :]
+                               .expand_as(listed)].any())
+    assert bool(per_tile.any())
+    assert not bool((per_tile & ~listed).any())
+
+
+def test_composite_over_on_cpu_is_the_scan():
+    """On CPU tensors the entry returns ``composite_ordered``'s result,
+    values and gradients, bit for bit."""
+    color, alpha, depth, boxes, gate, chunk = _ordered_case("gated",
+                                                            (20, 24))
+    cot = torch.randn(2, 1, 20, 24, generator=torch.Generator().manual_seed(5))
+    got = _ordered_grads(
+        lambda *a: O.composite_over(*a, (20, 24), pres_gate=t(gate),
+                                    chunk=chunk),
+        color, alpha, depth, boxes, gate, (20, 24), cot)
+    want = _ordered_grads(lambda *a: composite_ordered(*a, (20, 24), chunk),
+                          color, alpha, depth, boxes, gate, (20, 24), cot)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas", "pallas_v3", "xla"])
+def test_ordered_render_routes_by_backend(monkeypatch, backend):
+    """Ordered mode takes ``composite_over`` (the kernels on a card) on
+    every backend but 'xla', which keeps the plain scan, with the gate of
+    the branch's objects passed on."""
+    import spair_pytorch_tpu_torch.models.render as R
+    calls = []
+    monkeypatch.setattr(R, "composite_over", lambda *a, **kw: (
+        calls.append(("over", kw["pres_gate"].shape)),
+        O.composite_over(*a, **kw))[1])
+    monkeypatch.setattr(R, "composite_ordered", lambda *a, **kw: (
+        calls.append(("scan", None)), O.composite_ordered(*a, **kw))[1])
+    base, pnp, model, zs = _render_case(SPARSE, "ordered",
+                                        render_backend=backend)
+    topk = dataclasses.replace(base, render_topk=8)
+    _port_run(topk, model, zs)
+    assert calls == ([("scan", None)] if backend == "xla"
+                     else [("over", (2, 8))])
 
 
 def _render_case(pattern, mode, seed=0, **over):

@@ -92,8 +92,9 @@ def fresh_state(cfg, mesh, device):
 
 
 def run(cfg, steps, mesh, device, eager=False):
-    """(state, each step's logged loss as a float, the K1-K4 launches of
-    the run, counted over a captured step's replays)."""
+    """(state, each step's logged loss as a float, the launches of the
+    run's compositor kernels (K1-K4, ordered mode's forward and backward),
+    counted over a captured step's replays)."""
     for w in COUNTED:
         w.launches = 0
     state = fresh_state(cfg, mesh, device)
@@ -244,8 +245,9 @@ def main(argv=None):
             print(f"{arm} mesh step, world {mesh.world_size} (data "
                   f"{mesh.n_data}, model {mesh.n_model}): Adam "
                   f"capturable with its step counts on the device after "
-                  f"replicate, by rank: {ok}; K1-K4 launches of the "
-                  f"{args.steps} steps by rank: {[n for _, n in every]}")
+                  f"replicate, by rank: {ok}; K1-K4 and ordered launches of "
+                  f"the {args.steps} steps by rank: "
+                  f"{[n for _, n in every]}")
             torch.save({"params": params, "losses": losses, "arm": arm,
                         "world": mesh.world_size, "n_model": mesh.n_model},
                        args.out)
