@@ -272,6 +272,13 @@ random weights from the preset's seed:
                 train step with the kernels and with the plain scan
                 ('xla'), in turns: ms a step, peak memory, and the
                 kernels' launches over the replays.
+ 24. glue       cell_step's ten glue kernels (csrc/cell_glue.cu) at both
+                cells' front shapes (paper128 b128 bf16, quality b32 f32):
+                each against its plain version (forwards bit for bit,
+                backwards at 1e-6), timed over a captured graph beside the
+                plain version captured and its bytes at the HBM rate; a
+                front's five forwards and five backwards together, kernels
+                against plain.
 
 Every phase raises on failure. TF32 is off for the whole run (matmuls and
 cuDNN convs in full f32), so kernels and plain versions are compared on the
@@ -3842,6 +3849,207 @@ def ordered_phase(card, dev):
             "bound_by": bounds["forward"][1], "library_ms": None}
 
 
+# phase 24: cell_step's glue kernels (csrc/cell_glue.cu) at the two cells'
+# front shapes: paper128 b128 bf16 (6 lanes) and quality b32 f32 (8 lanes)
+GLUE_REPS = 20       # launches in a captured graph when timing one kernel
+GLUE_CELLS = (("paper128", 128, 6, torch.bfloat16), ("quality", 32, 8, None))
+GLUE_FWD_BAR, GLUE_GRAD_BAR = 0.0, 1e-6
+
+
+def glue_front(cfg, b, k, compute, dev, seed=24):
+    """One front's inputs of every glue segment in the layouts the scan
+    hands over (head outputs sliced from packed products, features and noise
+    per-front views), random, presence noise logistic."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    head = torch.float32 if compute is None else compute
+    nf, nc = cfg.n_backbone_features, cfg.context_dim
+    npass, na = cfg.n_passthrough_features, cfg.n_attributes
+
+    def rnd(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+    box_packed = rnd(b, k, 8 + npass, dtype=head, scale=2.0)
+    z_packed = rnd(b, k, 1, 2 + npass, dtype=head, scale=2.0)
+    u = torch.rand((b, k, 1), generator=gen, device=dev)
+    return dict(feat=rnd(b, 31, k, nf)[:, 7], context=rnd(b, k, nc),
+                hb=box_packed[..., :8], passthru=box_packed[..., 8:],
+                noise_box=rnd(b, 31, k, 4)[:, 7],
+                cell_hw=torch.randint(0, 11, (k, 2), generator=gen,
+                                      device=dev),
+                lat=rnd(b, k, 2 * na, dtype=head, scale=2.0),
+                noise_attr=rnd(b, 31, k, na)[:, 7], fc=rnd(b, k, nf + nc),
+                box=rnd(b, k, 1, 4), dl=z_packed[..., :2],
+                pass2=z_packed[..., 2:], noise_depth=rnd(b, 31, k, 1)[:, 7],
+                fc3=rnd(b, k, nf + nc), attr=rnd(b, k, 1, na),
+                po=rnd(b, k, 1, 1, dtype=head, scale=4.0),
+                noise_pres=torch.log(u + 1e-9) - torch.log(1 - u + 1e-9),
+                depth=rnd(b, k, 1), tw=torch.zeros((), device=dev))
+
+
+def glue_segments(cfg, x, compute):
+    """{segment: (forward, plain forward, backward(cots), plain
+    backward(cots), the tensors each forward reads)} at one front."""
+    from spair_pytorch_tpu_torch.models.latents import geometry
+    from spair_pytorch_tpu_torch.ops.kernels import cell_glue as G
+    g = G.geometry_of(cfg, geometry(cfg))
+    nf, w1 = cfg.n_backbone_features, cfg.n_backbone_features + \
+        cfg.context_dim
+    npass, na = cfg.n_passthrough_features, cfg.n_attributes
+    shape = tuple(x["feat"].shape[:2]) + (w1,)
+    tw = x["tw"]
+
+    def flat(out):
+        return (*out[0], *out[1], *out[2:])
+    box_args = (x["hb"], x["noise_box"], tw, x["cell_hw"], g, 1)
+    attr_args = (x["lat"], x["noise_attr"], x["fc"], x["passthru"], x["box"])
+    depth_args = (x["dl"], x["pass2"], x["noise_depth"], tw, x["fc3"],
+                  x["box"], x["attr"])
+    pres_args = (x["po"], x["noise_pres"], tw, x["box"], x["attr"],
+                 x["depth"], False)
+    return {
+        "box_in": (lambda: G.box_in_forward(x["feat"], x["context"], compute),
+                   lambda: G.box_in_plain(x["feat"], x["context"], compute),
+                   lambda c: G.box_in_backward(c[0], c[1], nf, shape),
+                   lambda c: G.box_in_backward_plain(c[0], c[1], nf),
+                   (x["feat"], x["context"])),
+        "box": (lambda: flat(G.box_forward(*box_args, compute)),
+                lambda: flat(G.box_plain(*box_args, compute)),
+                lambda c: (G.box_backward(*box_args, c[:4], c[4:8], *c[8:]),),
+                lambda c: (G.box_backward_plain(*box_args, c[:4], c[4:8],
+                                                *c[8:]),),
+                (x["hb"], x["noise_box"])),
+        "attr_z": (lambda: G.attr_z_forward(*attr_args, compute),
+                   lambda: G.attr_z_plain(*attr_args, compute),
+                   lambda c: G.attr_z_backward(
+                       x["lat"], x["noise_attr"], *c, w1, npass,
+                       x["passthru"].dtype),
+                   lambda c: G.attr_z_backward_plain(
+                       x["lat"], x["noise_attr"], *c, w1, npass,
+                       x["passthru"].dtype), attr_args),
+        "depth_obj": (lambda: G.depth_obj_forward(*depth_args, compute),
+                      lambda: G.depth_obj_plain(*depth_args, compute),
+                      lambda c: G.depth_obj_backward(
+                          x["dl"], x["pass2"].dtype, x["noise_depth"], tw,
+                          *c, w1, npass, na),
+                      lambda c: G.depth_obj_backward_plain(
+                          x["dl"], x["pass2"].dtype, x["noise_depth"], tw,
+                          *c, w1, npass, na),
+                      [t for t in depth_args if torch.is_tensor(t)]),
+        "pres": (lambda: G.pres_forward(*pres_args),
+                 lambda: G.pres_plain(*pres_args),
+                 lambda c: G.pres_backward(x["po"], x["noise_pres"], tw, *c,
+                                           False, na),
+                 lambda c: G.pres_backward_plain(x["po"], x["noise_pres"], tw,
+                                                 *c, False, na),
+                 [t for t in pres_args if torch.is_tensor(t)]),
+    }
+
+
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if torch.is_tensor(t))
+
+
+def glue_bytes(seg, reads, outs, cots, grads, oh_ow):
+    """(forward, backward) bytes each input read once and each output
+    written once. The box backward reads 3 taps of each hat-weight row of
+    its cotangents, not the rows: it is counted so."""
+    fwd = nbytes(reads) + nbytes(outs)
+    cot = list(cots)
+    taps = 0
+    if seg == "box":
+        rows = cots[10].shape[0] * cots[10].shape[1]   # objects
+        taps = rows * sum(oh_ow) * 3 * cots[10].element_size()
+        cot = cot[:10]
+    bwd = nbytes(reads) + nbytes(cot) + taps + nbytes(grads)
+    return fwd, bwd
+
+
+def glue_phase(card, dev):
+    """Phase 24: cell_step's ten glue kernels at both cells' front shapes
+    (paper128 b128 bf16, 6 lanes; quality b32 f32, 8 lanes): each held
+    against its plain version (forwards bit for bit, backwards within
+    GLUE_GRAD_BAR in float32 and a bf16 step in bf16), each timed alone
+    (CUDA events over a captured graph of GLUE_REPS launches, 3 replays,
+    best of three) beside its plain version captured the same way and a
+    bound of its bytes at the HBM rate (chip_smoke.py::bound's rule: each
+    input read once, each output written once); then the five forwards
+    and the five backwards of a front together, kernels against plain.
+    Returns a row per kernel."""
+    from spair_pytorch_tpu_torch.config import PRESETS
+    from spair_pytorch_tpu_torch.ops.kernels import cell_glue as G
+    t_phase = time.perf_counter()
+    rows = []
+    for name, b, k, compute in GLUE_CELLS:
+        cfg = PRESETS[name]()
+        x = glue_front(cfg, b, k, compute, dev)
+        segs = glue_segments(cfg, x, compute)
+        gen = torch.Generator(device=dev).manual_seed(240)
+        cots_of, front = {}, {"kernels": [], "plain": []}
+        for seg, (fwd, fwd_p, bwd, bwd_p, reads) in segs.items():
+            with torch.no_grad():
+                out, want = fwd(), fwd_p()
+                same = all(torch.equal(o, w) for o, w in zip(out, want))
+                cots = [torch.randn(o.shape, generator=gen,
+                                    device=dev).to(o.dtype) for o in out]
+                cots_of[seg] = cots
+                got, ref = bwd(cots), bwd_p(cots)
+            errs = []
+            for gt, rf in zip(got, ref):
+                scale = float(rf.float().abs().max())
+                errs.append(float((gt.float() - rf.float()).abs().max())
+                            / max(scale, 1e-30))
+            f32 = [e for e, gt in zip(errs, got) if gt.dtype == torch.float32]
+            bf = [e for e, gt in zip(errs, got) if gt.dtype != torch.float32]
+            if not same or (f32 and max(f32) > GLUE_GRAD_BAR) \
+                    or (bf and max(bf) > 2.0 ** -7):
+                raise AssertionError(f"{name} {seg}: forward equal {same}, "
+                                     f"backward errors {errs}")
+            fb, bb = glue_bytes(seg, reads, out, cots, got, cfg.object_shape)
+
+            def reps(fn, *a):
+                return lambda: [fn(*a) for _ in range(GLUE_REPS)]
+            with torch.no_grad():
+                t = {key: min(graph_ms(fn, reps=3) / GLUE_REPS
+                              for _ in range(3))
+                     for key, fn in (("fwd", reps(fwd)), ("fwd_plain",
+                                                          reps(fwd_p)),
+                                     ("bwd", reps(bwd, cots)),
+                                     ("bwd_plain", reps(bwd_p, cots)))}
+            for d, moved in (("fwd", fb), ("bwd", bb)):
+                bound = moved / HBM_BYTES_PER_S * 1e3
+                phase("glue", f"{name} b{b} {seg} {d}: kernel "
+                              f"{t[d] * 1e3:.2f} us, plain "
+                              f"{t[d + '_plain'] * 1e3:.2f} us "
+                              f"({t[d + '_plain'] / t[d]:.1f}x); bound "
+                              f"{bound * 1e3:.2f} us (bytes, "
+                              f"{moved / 1e6:.3f} MB), {bound / t[d]:.1%} "
+                              f"of it ({card})")
+                rows.append({"name": f"glue_{seg}_{d}", "cell": name,
+                             "ms": t[d], "plain_ms": t[d + "_plain"],
+                             "bound_ms": bound, "bound_by": "bytes",
+                             "max_abs_err": max(errs) if d == "bwd" else 0.0})
+            front["kernels"].append((fwd, bwd, cots))
+            front["plain"].append((fwd_p, bwd_p, cots))
+
+        def whole(parts):
+            def run():
+                for fwd, _, _ in parts:
+                    fwd()
+                for _, bwd, cots in reversed(parts):
+                    bwd(cots)
+            return run
+        with torch.no_grad():
+            fr = [min(graph_ms(whole(front[key]), reps=10) for _ in range(3))
+                  for key in ("plain", "kernels", "kernels", "plain")]
+        phase("glue", f"{name} b{b} a front's glue, five forwards and five "
+                      f"backwards, captured: kernels {fr[1] * 1e3:.1f}, "
+                      f"{fr[2] * 1e3:.1f} us; plain {fr[0] * 1e3:.1f}, "
+                      f"{fr[3] * 1e3:.1f} us ({card})")
+    phase("glue", f"phase 24 in {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def failed_capture_phase(dev):
     """Phases 20(c), 17(j) and 18(d), last in the run since each leaves a
     failed capture behind: a host read injected into the captured mesh
@@ -4144,6 +4352,9 @@ def main():
 
     # 23. ordered mode's kernels at quality's shapes and in its step
     ordered_row = ordered_phase(card, dev)
+
+    # 24. cell_step's glue kernels at both cells' front shapes
+    glue_rows = glue_phase(card, dev)
     failed_capture_phase(dev)
     # each path's own launches, from its own run with the counts set to 0
     # just before it: `launches` is the main path's (phase 9, K1/K2) or the
@@ -4184,7 +4395,7 @@ def main():
          "bound_ms": same["bound"][k][0], "bound_by": same["bound"][k][1],
          "library_ms": None, "path_launches": path}
         for (name, source, k, where, n, err), path in zip(rows, paths)]
-        + [anatomy_row, ordered_row]}))
+        + [anatomy_row, ordered_row] + glue_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

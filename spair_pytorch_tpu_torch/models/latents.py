@@ -17,11 +17,10 @@ from spair_pytorch_tpu_torch.config import SpairConfig
 from spair_pytorch_tpu_torch.ops.backbone import (Backbone, grid_geometry,
                                                   reset_fan_in_)
 from spair_pytorch_tpu_torch.ops.convcodec import ConvDecoder, ConvEncoder
-from spair_pytorch_tpu_torch.ops.math import (clamped_sigmoid,
-                                              latent_to_mean_std,
-                                              logistic_noise)
+from spair_pytorch_tpu_torch.ops.kernels import cell_glue as glue
+from spair_pytorch_tpu_torch.ops.math import logistic_noise
 from spair_pytorch_tpu_torch.ops.mlp import MLP
-from spair_pytorch_tpu_torch.ops.stn import crop_glimpses
+from spair_pytorch_tpu_torch.ops.stn import crop_with_weights
 
 
 def geometry(cfg: SpairConfig):
@@ -145,122 +144,80 @@ def apply_self_attn(params: SelfAttention, ctx):
     return torch.einsum("bij,bjd->bid", attn, v)
 
 
-def freeze_learning(v, tw):
-    """tw * v.detach() + (1 - tw) * v: the value of v, with gradients
-    blocked while the training wheel is on."""
-    return tw * v.detach() + (1.0 - tw) * v
-
-
 def cell_step(params: SpairModel, cfg: SpairConfig, geom, image, feat_cells,
               context, noise: Dict, cell_hw, tw, dtype=None):
     """Run every head for a set of K cells in parallel.
 
     image (B, C, H, W); feat_cells (B, K, F); context (B, K, context_dim);
     noise {name: (B, K, ·)}; cell_hw (K, 2) long cell coordinates; tw the
-    training-wheel scalar; ``dtype`` the compute dtype of the MLPs and the
-    glimpse crop (None for float32); the MLP outputs return in float32.
-    With S = n_object_slots > 1 every per-object quantity carries a slot
-    axis inside and is folded slot-major into the last dim on return.
-    Returns the sampled latents, the posterior (mean, std) pairs under the
-    reference's names, the presence probability and the S*56-dim context
-    vector each cell shows its neighbours."""
-    _, _, cell_px = geom
-    img_h, img_w = cfg.image_shape[1:]
-    s = cfg.n_object_slots
-    b, k = feat_cells.shape[:2]
+    training-wheel scalar (a 0-d float32 tensor on the inputs' device);
+    ``dtype`` the compute dtype of the MLPs and the glimpse crop (None for
+    float32). With S = n_object_slots > 1 every per-object quantity carries
+    a slot axis inside and is folded slot-major into the last dim on
+    return. Returns the sampled latents, the posterior (mean, std) pairs
+    under the reference's names, the presence probability and the S*56-dim
+    context vector each cell shows its neighbours.
 
-    def per_slot(t):  # (B, K, S*d) -> (B, K, S, d)
-        return t.reshape(b, k, s, -1)
+    The products (the four MLPs and the crop's two einsums) run here; the
+    elementwise chains between them are the five segments of
+    ``ops/kernels/cell_glue.py``, each one kernel forward and one backward
+    on CUDA tensors and its plain version on CPU tensors. The MLPs' head
+    outputs go to the segments as the products made them (bf16 with bf16
+    compute); every latent is float32. A tensor that several segments read
+    sums its cotangents in autograd in the order of the segments' creation,
+    latest first, and the segment that made it adds its own use last: the
+    order in which autograd summed them when this was one composition."""
+    s = cfg.n_object_slots
+    g = glue.geometry_of(cfg, geom)
+    stick = s > 1 and cfg.slot_coupling == "stick"
 
     def fold(t):  # (B, K, S, d) -> (B, K, S*d)
-        return t.reshape(b, k, -1)
-
-    def shared(t):  # (B, K, D) -> (B, K, S, D)
-        return t[:, :, None].expand(b, k, s, t.shape[-1])
+        return t.reshape(t.shape[0], t.shape[1], -1)
 
     # --- z_where ---
-    box_latent, passthru = params.box_network(
-        torch.cat([feat_cells, context], dim=-1), packed=cfg.packed_heads,
-        dtype=dtype)
-    mean, std = latent_to_mean_std(per_slot(box_latent))    # (B, K, S, 4)
-    mean, std = freeze_learning(mean, tw), freeze_learning(std, tw)
-    box_logits = mean + std * per_slot(noise["box"])  # order (cy, cx, h, w)
-    cy_l, cx_l, h_l, w_l = torch.split(box_logits, 1, dim=-1)
-
-    yx_range = cfg.max_yx - cfg.min_yx
-    cell_y = yx_range * clamped_sigmoid(cy_l) + cfg.min_yx
-    cell_x = yx_range * clamped_sigmoid(cx_l) + cfg.min_yx
-    hw_range = cfg.max_hw - cfg.min_hw
-    height = hw_range * clamped_sigmoid(h_l) + cfg.min_hw
-    width = hw_range * clamped_sigmoid(w_l) + cfg.min_hw
-
-    box = torch.cat([cell_x, cell_y, width, height], dim=-1)  # x-first
-
-    ys = height * cfg.anchor_shape[0] / img_h
-    xs = width * cfg.anchor_shape[1] / img_w
-    h_idx = cell_hw[:, 0].to(torch.float32)[None, :, None, None]
-    w_idx = cell_hw[:, 1].to(torch.float32)[None, :, None, None]
-    yt = (cell_px[0] / img_h) * (cell_y + h_idx)
-    xt = (cell_px[1] / img_w) * (cell_x + w_idx)
-    z_where = torch.cat([xt, yt, xs, ys], dim=-1)            # (B, K, S, 4)
+    x_box, fc = glue.BoxIn.apply(feat_cells, context, dtype)
+    box_head, passthru = params.box_network(
+        x_box, packed=cfg.packed_heads, dtype=dtype, promote=False)
+    out = glue.Box.apply(box_head, noise["box"], tw, cell_hw, g, s, dtype)
+    (cy_m, cx_m, h_m, w_m), (cy_s, cx_s, h_s, w_s) = out[:4], out[4:8]
+    box, z_where, wy, wx = out[8:]
 
     # --- z_what ---
-    glimpses = crop_glimpses(image, z_where.reshape(b, k * s, 4),
-                             cfg.object_shape, dtype)      # (B, K*S, C, oh, ow)
+    glimpses = crop_with_weights(image, wy, wx, dtype)  # (B, K*S, C, oh, ow)
+    b, n = glimpses.shape[:2]
     if cfg.object_codec == "conv":
         attr_latent = params.object_encoder(glimpses, dtype=dtype)
     else:
-        attr_latent = params.object_encoder(glimpses.reshape(b, k * s, -1),
-                                            dtype=dtype)[0]
-    attr_mean, attr_std = latent_to_mean_std(attr_latent.reshape(b, k, s, -1))
-    attr = attr_mean + attr_std * per_slot(noise["attr"])
+        attr_latent = params.object_encoder(glimpses.reshape(b, n, -1),
+                                            dtype=dtype, promote=False)[0]
+    attr_mean, attr_std, attr, z_in, fc3 = glue.AttrZ.apply(
+        attr_latent, noise["attr"], fc, passthru, box, dtype)
 
     # --- z_depth ---
-    z_in = torch.cat([shared(feat_cells), shared(context), shared(passthru),
-                      box, attr], dim=-1)
-    depth_latent, passthru2 = params.z_network(z_in, packed=cfg.packed_heads,
-                                               dtype=dtype)
-    depth_mean, depth_std = latent_to_mean_std(depth_latent)
-    depth_mean = freeze_learning(depth_mean, tw)
-    depth_std = freeze_learning(depth_std, tw)
-    depth = 4.0 * clamped_sigmoid(depth_mean
-                                  + depth_std * per_slot(noise["depth"]))
+    depth_head, passthru2 = params.z_network(
+        z_in, packed=cfg.packed_heads, dtype=dtype, promote=False)
+    depth_mean, depth_std, depth, obj_in = glue.DepthObj.apply(
+        depth_head, passthru2, noise["depth"], tw, fc3, box, attr, dtype)
 
     # --- z_pres ---
-    obj_in = torch.cat([shared(feat_cells), shared(context), passthru2, box,
-                        attr, depth], dim=-1)
-    pres_logit = freeze_learning(params.obj_network(obj_in, dtype=dtype)[0],
-                                 tw)
-    stick = s > 1 and cfg.slot_coupling == "stick"
-    if stick:
-        # ordered stick-breaking: later slots start biased off
-        offset = -2.0 * torch.arange(s, dtype=pres_logit.dtype,
-                                     device=pres_logit.device)
-        pres_logit = pres_logit + offset[None, None, :, None]
-    log_odds = torch.clamp(pres_logit, -10.0, 10.0)
-    pres_prob = torch.sigmoid(log_odds + per_slot(noise["pres_noise"]))
-    if stick:
-        pres_prob = torch.cumprod(pres_prob, dim=2)
-    pres = pres_prob  # the relaxed sample is the probability itself
+    pres_head = params.obj_network(obj_in, dtype=dtype, promote=False)[0]
+    pres, ctx_vec = glue.Pres.apply(pres_head, noise["pres_noise"], tw, box,
+                                    attr, depth, stick)
 
-    ctx_vec = fold(torch.cat([box, attr, depth, pres], dim=-1))
-
-    cy_m, cx_m, h_m, w_m = torch.split(mean, 1, dim=-1)
-    cy_s, cx_s, h_s, w_s = torch.split(std, 1, dim=-1)
     posterior = {
-        "cy_logit": (fold(cy_m), fold(cy_s)),
-        "cx_logit": (fold(cx_m), fold(cx_s)),
-        "height_logit": (fold(h_m), fold(h_s)),
-        "width_logit": (fold(w_m), fold(w_s)),
+        "cy_logit": (cy_m, cy_s),
+        "cx_logit": (cx_m, cx_s),
+        "height_logit": (h_m, h_s),
+        "width_logit": (w_m, w_s),
         "attr": (fold(attr_mean), fold(attr_std)),
-        "depth_logit": (fold(depth_mean), fold(depth_std)),
+        "depth_logit": (depth_mean, depth_std),
     }
     return {
         "z_where": fold(z_where),
         "z_attr": fold(attr),
-        "z_depth": fold(depth),
+        "z_depth": depth,
         "z_pres": fold(pres),
-        "z_pres_prob": fold(pres_prob),
+        "z_pres_prob": fold(pres),
         "posterior": posterior,
         "context_vec": ctx_vec,
     }

@@ -167,6 +167,8 @@ def infer_latents(params, cfg: SpairConfig, x, step, generator=None,
     noise_flat = {name: v.reshape(b, n, v.shape[-1])
                   for name, v in noise.items()}
     tw = exponential_decay(step, cfg.training_wheel, device)
+    # the glimpse crop's operand, cast once for every front
+    image = x if dtype is None else x.to(dtype)
 
     if cfg.inference_mode == "independent":
         context = params.virtual_edge_element.repeat(
@@ -180,15 +182,15 @@ def infer_latents(params, cfg: SpairConfig, x, step, generator=None,
             def shard(t, dim=1):
                 return shard_cells(t, mesh, dim)
             flat = _gathered(cell_step(
-                params, cfg, geom, x, shard(feat_flat), shard(context),
+                params, cfg, geom, image, shard(feat_flat), shard(context),
                 {name: shard(v) for name, v in noise_flat.items()},
                 shard(hw, 0), tw, dtype), mesh, n)
         else:
-            flat = cell_step(params, cfg, geom, x, feat_flat, context,
+            flat = cell_step(params, cfg, geom, image, feat_flat, context,
                              noise_flat, hw, tw, dtype)
     else:
-        flat = _scan_inference(params, cfg, geom, x, feat_flat, noise_flat,
-                               tw, dtype, b, gh, gw, mesh)
+        flat = _scan_inference(params, cfg, geom, image, feat_flat,
+                               noise_flat, tw, dtype, b, gh, gw, mesh)
 
     def grid(t):
         # slot-major unfold into the virtual (gh, gw*S) grid

@@ -17,7 +17,9 @@ take the band). ``csrc/kernel_anatomy.cu``, the windowed matmul paste of
 ``benchmarks/kernel_anatomy.py`` (K5), is built beside them and launched by
 ``benchmarks/kernel_anatomy.py::kernel_anatomy``, and so is
 ``csrc/composite_ordered.cu``, ordered mode's over operator and its
-backward, launched by ``ops/kernels/composite_ordered.py``;
+backward, launched by ``ops/kernels/composite_ordered.py``, and
+``csrc/cell_glue.cu``, the per-cell glue of ``models/latents.py::
+cell_step``, launched by ``ops/kernels/cell_glue.py``;
 ``csrc/spans.cu``, the span
 mark of ``utils/spans.py``, too, but only when a recorder first needs it.
 They are compiled with ``nvcc`` at first use into
@@ -49,7 +51,7 @@ _EPS = 1e-9
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
            for name in ("composite_fwd", "composite_bwd", "kernel_anatomy",
-                        "composite_ordered", "spans")}
+                        "composite_ordered", "cell_glue", "spans")}
 # built alone at their first load, never with the others: a run without
 # span marks compiles no span kernel
 ON_DEMAND = ("spans",)
@@ -383,6 +385,8 @@ def load_library(name: str) -> ctypes.CDLL:
         "kernel_anatomy": {
             "spair_kernel_anatomy": ([ptr] * 7 + [i32] * 9 + [f32, ptr], i32),
             "spair_kernel_anatomy_smem": ([i32] * 6, ctypes.c_size_t)},
+        "cell_glue": {
+            "spair_cell_glue": ([i32, ptr, ptr], i32)},
         "spans": {
             "spair_span_mark_launch": ([ptr] + [i32] * 4 + [ptr], i32),
             "spair_span_host_words": ([i32, ctypes.POINTER(ptr),

@@ -17,6 +17,12 @@ def latent_to_mean_std(latent):
     return mean, 2.0 * torch.sigmoid(torch.clamp(log_std, -10.0, 10.0))
 
 
+def freeze_learning(v, tw):
+    """tw * v.detach() + (1 - tw) * v: the value of v, with gradients
+    blocked while the training wheel is on."""
+    return tw * v.detach() + (1.0 - tw) * v
+
+
 class AnalyticalSigmoid(torch.autograd.Function):
     """1 / (exp(-x) + 1) with the derivative s * (1 - s).
 

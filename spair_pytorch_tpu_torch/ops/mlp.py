@@ -41,14 +41,17 @@ class MLP(nn.Module):
     def heads(self):
         return list(self.output_layers) if self.multi else [self.out]
 
-    def forward(self, x, packed: bool = True, dtype=None):
+    def forward(self, x, packed: bool = True, dtype=None,
+                promote: bool = True):
         """x (..., n_in) -> tuple of head outputs (..., head_dim).
 
         With ``packed`` the heads run as one GEMM over their concatenated
         weights, split back afterwards (same columns, fewer launches). With
         ``dtype`` (bf16 compute) the input, weights and biases are cast to
         it, the float32 weights staying the masters, and the head outputs
-        are promoted back to float32."""
+        are promoted back to float32; without ``promote`` they are returned
+        as the products made them (``cell_step``'s glue kernels read
+        them so)."""
         def dense(v, w, b):
             if dtype is not None:
                 w, b = w.to(dtype), b.to(dtype)
@@ -72,6 +75,6 @@ class MLP(nn.Module):
             outs = torch.split(dense(x, w, b), self.widths, dim=-1)
         else:
             outs = [layer_out(x, h) for h in heads]
-        if dtype is not None:
+        if dtype is not None and promote:
             outs = [o.to(torch.float32) for o in outs]
         return tuple(outs)

@@ -66,7 +66,15 @@ def crop_glimpses(image, boxes, object_shape, dtype=None):
     ih, iw = image.shape[-2:]
     wy, wx = crop_weights(boxes, object_shape, (ih, iw))
     if dtype is not None:
-        image, wy, wx = image.to(dtype), wy.to(dtype), wx.to(dtype)
+        wy, wx = wy.to(dtype), wx.to(dtype)
+    return crop_with_weights(image, wy, wx, dtype)
+
+
+def crop_with_weights(image, wy, wx, dtype=None):
+    """The crop's two einsums on its hat weights wy (B, N, oh, H) and wx
+    (B, N, ow, W), already in ``dtype``: (B, N, C, oh, ow)."""
+    if dtype is not None:
+        image = image.to(dtype)
     tmp = torch.einsum("bnyh,bchw->bncyw", wy, image)
     return torch.einsum("bncyw,bnxw->bncyx", tmp, wx)
 

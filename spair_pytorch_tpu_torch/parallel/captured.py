@@ -118,17 +118,18 @@ from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from spair_pytorch_tpu_torch.config import SpairConfig
 from spair_pytorch_tpu_torch.models.render import takes_topk
+from spair_pytorch_tpu_torch.ops.kernels import cell_glue as _glue
 from spair_pytorch_tpu_torch.ops.kernels import composite as _k12
 from spair_pytorch_tpu_torch.ops.kernels import composite_ordered as _over
 from spair_pytorch_tpu_torch.ops.kernels import composite_v3 as _k34
 from spair_pytorch_tpu_torch.utils import spans as _spans
 from spair_pytorch_tpu_torch.utils.debug import host_checks_on
 
-# the wrappers that count their kernels' launches: K1, K2, K3, K4, and
-# ordered mode's forward and backward
+# the wrappers that count their kernels' launches: K1, K2, K3, K4,
+# ordered mode's forward and backward, and cell_step's ten glue kernels
 COUNTED = (_k12.composite_forward, _k12.composite_backward,
            _k34.composite_v3_forward, _k34.composite_v3_backward,
-           _over.ordered_forward, _over.ordered_backward)
+           _over.ordered_forward, _over.ordered_backward) + _glue.COUNTED
 
 
 def eager_reason(cfg: SpairConfig, device, mesh=None) -> Optional[str]:

@@ -2086,3 +2086,347 @@ def test_a_host_read_in_a_topk_tail_makes_its_capture_raise(cuda,
     with pytest.raises(RuntimeError, match="capture failed"):
         step(state)
     assert int(state.step) == 1 and calls == {"head": 2, "tail": 2}
+
+
+# ---------------------------------------------------------------------------
+# cell_step's glue kernels (csrc/cell_glue.cu) against their plain versions
+
+GLUE_GRAD_BAR = 1e-6   # float32 gradients, max |kernel - plain| / max |plain|
+GLUE_BF16_ULP = 2.0 ** -7  # bf16 gradients: within one bf16 step of plain
+# (preset, B, lanes, slots, compute dtype): paper128's b128 front, quality's
+# b32 front, independent mode's 121 cells, two slots with stick-breaking
+GLUE_CASES = {"paper128_b128": ("paper128", 128, 6, 1, "bfloat16"),
+              "quality_b32": ("quality", 32, 8, 1, "float32"),
+              "independent_121": ("paper128", 8, 121, 1, "bfloat16"),
+              "stick_float32": ("paper128", 4, 6, 2, "float32"),
+              "stick_bfloat16": ("paper128", 4, 6, 2, "bfloat16")}
+
+
+def glue_config(name, slots):
+    from spair_pytorch_tpu_torch.config import PRESETS
+    cfg = PRESETS[name]()
+    if slots > 1:
+        cfg = dataclasses.replace(cfg, n_object_slots=slots,
+                                  slot_coupling="stick")
+    return cfg
+
+
+def glue_inputs(cfg, b, k, s, head, dev, seed):
+    """Every segment's inputs, in the layouts the scan hands over: features
+    and noise as per-front views of larger tensors, head outputs sliced
+    from packed products; a third of the head logits at exactly +-10 with
+    their noise 0."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nf, nc = cfg.n_backbone_features, cfg.context_dim
+    npass, na = cfg.n_passthrough_features, cfg.n_attributes
+
+    def rnd(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def edges(t, cols):
+        pick = torch.rand(t[..., cols].shape, generator=gen, device=dev) < 0.33
+        sign = torch.where(torch.rand(pick.shape, generator=gen, device=dev)
+                           < 0.5, -10.0, 10.0).to(t.dtype)
+        t[..., cols] = torch.where(pick, sign, t[..., cols])
+
+    box_packed = rnd(b, k, 8 * s + npass, dtype=head, scale=2.0)
+    hb4 = box_packed[..., :8 * s].unflatten(-1, (s, 8))
+    edges(hb4, slice(0, 8))
+    noise_box = rnd(b, 3, k, 4 * s)[:, 1]
+    noise_box.unflatten(-1, (s, 4))[hb4[..., :4].float().abs() == 10.0] = 0.0
+    lat = rnd(b, k * s, 2 * na, dtype=head, scale=3.0)
+    edges(lat, slice(na, 2 * na))
+    z_packed = rnd(b, k, s, 2 + npass, dtype=head, scale=4.0)
+    edges(z_packed, slice(0, 2))
+    noise_depth = rnd(b, 2, k, s)[:, 0]
+    noise_depth[z_packed[..., 0].float().abs() == 10.0] = 0.0
+    po = rnd(b, k, s, 1, dtype=head, scale=6.0)
+    edges(po, slice(0, 1))
+    u = torch.rand((b, 2, k, s), generator=gen, device=dev)[:, 1]
+    return dict(
+        feat=rnd(b, 4, k, nf)[:, 2], context=rnd(b, k, nc),
+        hb=box_packed[..., :8 * s], passthru=box_packed[..., 8 * s:],
+        noise_box=noise_box,
+        cell_hw=torch.randint(0, 11, (k, 2), generator=gen, device=dev),
+        lat=lat, noise_attr=rnd(b, 2, k, s * na)[:, 0],
+        fc=rnd(b, k, nf + nc), box=rnd(b, k, s, 4),
+        dl=z_packed[..., :2], pass2=z_packed[..., 2:],
+        noise_depth=noise_depth, fc3=rnd(b, k, nf + nc),
+        attr=rnd(b, k, s, na), po=po,
+        noise_pres=torch.log(u + 1e-9) - torch.log(1 - u + 1e-9),
+        depth=rnd(b, k, s))
+
+
+def glue_cots(outs, dev, seed, drop=()):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [None if i in drop else
+            torch.randn(o.shape, generator=gen, device=dev).to(o.dtype)
+            for i, o in enumerate(outs)]
+
+
+def glue_equal(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        assert torch.equal(g, w), (i, float((g.float() - w.float()).abs()
+                                            .max()))
+
+
+def glue_close(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        f32 = g.dtype == torch.float32
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        if f32:
+            scale = float(w.abs().max())
+            assert float(err.max()) <= GLUE_GRAD_BAR * max(scale, 1e-30), \
+                (i, float(err.max()), scale)
+        else:
+            assert bool((err <= GLUE_BF16_ULP * w.abs() + 1e-30).all()), i
+
+
+def glue_segments(cfg, x, tw, compute):
+    """Per segment: (forward kernel, forward plain, inputs, backward kernel
+    and plain as functions of the cotangents)."""
+    from spair_pytorch_tpu_torch.models.latents import geometry
+    from spair_pytorch_tpu_torch.ops.kernels import cell_glue as G
+    s = cfg.n_object_slots
+    g = G.geometry_of(cfg, geometry(cfg))
+    nf, nc = cfg.n_backbone_features, cfg.context_dim
+    npass, na = cfg.n_passthrough_features, cfg.n_attributes
+    w1 = nf + nc
+    stick = s > 1
+    shape = tuple(x["feat"].shape[:2]) + (w1,)
+    return {
+        "box_in": (lambda: G.box_in_forward(x["feat"], x["context"], compute),
+                   lambda: G.box_in_plain(x["feat"], x["context"], compute),
+                   lambda c: G.box_in_backward(c[0], c[1], nf, shape),
+                   lambda c: G.box_in_backward_plain(c[0], c[1], nf)),
+        "box": (lambda: _flat_box(G.box_forward(x["hb"], x["noise_box"], tw,
+                                                x["cell_hw"], g, s, compute)),
+                lambda: _flat_box(G.box_plain(x["hb"], x["noise_box"], tw,
+                                              x["cell_hw"], g, s, compute)),
+                lambda c: (G.box_backward(x["hb"], x["noise_box"], tw,
+                                          x["cell_hw"], g, s, c[:4], c[4:8],
+                                          *c[8:]),),
+                lambda c: (G.box_backward_plain(x["hb"], x["noise_box"], tw,
+                                                x["cell_hw"], g, s, c[:4],
+                                                c[4:8], *c[8:]),)),
+        "attr_z": (lambda: G.attr_z_forward(x["lat"], x["noise_attr"],
+                                            x["fc"], x["passthru"], x["box"],
+                                            compute),
+                   lambda: G.attr_z_plain(x["lat"], x["noise_attr"], x["fc"],
+                                          x["passthru"], x["box"], compute),
+                   lambda c: G.attr_z_backward(x["lat"], x["noise_attr"], *c,
+                                               w1, npass, x["passthru"].dtype),
+                   lambda c: G.attr_z_backward_plain(
+                       x["lat"], x["noise_attr"], *c, w1, npass,
+                       x["passthru"].dtype)),
+        "depth_obj": (lambda: G.depth_obj_forward(
+                          x["dl"], x["pass2"], x["noise_depth"], tw, x["fc3"],
+                          x["box"], x["attr"], compute),
+                      lambda: G.depth_obj_plain(
+                          x["dl"], x["pass2"], x["noise_depth"], tw, x["fc3"],
+                          x["box"], x["attr"], compute),
+                      lambda c: G.depth_obj_backward(
+                          x["dl"], x["pass2"].dtype, x["noise_depth"], tw, *c,
+                          w1, npass, na),
+                      lambda c: G.depth_obj_backward_plain(
+                          x["dl"], x["pass2"].dtype, x["noise_depth"], tw, *c,
+                          w1, npass, na)),
+        "pres": (lambda: G.pres_forward(x["po"], x["noise_pres"], tw,
+                                        x["box"], x["attr"], x["depth"],
+                                        stick),
+                 lambda: G.pres_plain(x["po"], x["noise_pres"], tw, x["box"],
+                                      x["attr"], x["depth"], stick),
+                 lambda c: G.pres_backward(x["po"], x["noise_pres"], tw, *c,
+                                           stick, na),
+                 lambda c: G.pres_backward_plain(x["po"], x["noise_pres"], tw,
+                                                 *c, stick, na)),
+    }
+
+
+def _flat_box(out):
+    means, stds, *rest = out
+    return (*means, *stds, *rest)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GLUE_CASES))
+def test_glue_kernels_match_their_plain_versions(cuda, case):
+    """Each of the ten kernels against its plain version on the same CUDA
+    tensors: forwards bit for bit (float32 and bf16 outputs), backwards
+    within GLUE_GRAD_BAR (float32) or a bf16 step, with every cotangent and
+    with some left out (None); one launch a call."""
+    from spair_pytorch_tpu_torch.ops.kernels import cell_glue as G
+    name, b, k, s, dname = GLUE_CASES[case]
+    cfg = glue_config(name, s)
+    compute = None if dname == "float32" else torch.bfloat16
+    head = torch.float32 if compute is None else compute
+    for i, tw_v in enumerate((0.0, 0.3, 1.0)):
+        x = glue_inputs(cfg, b, k, s, head, cuda, seed=10 * i + s)
+        tw = torch.full((), tw_v, device=cuda)
+        for seg, (fwd, fwd_plain, bwd, bwd_plain) in glue_segments(
+                cfg, x, tw, compute).items():
+            before = [w.launches for w in G.COUNTED]
+            with torch.no_grad():
+                got = fwd()
+                want = fwd_plain()
+                glue_equal(got, want)
+                for drop in ((), (0,), tuple(range(1, len(got), 2))):
+                    cots = glue_cots(got, cuda, seed=i, drop=drop)
+                    glue_close(bwd(cots), bwd_plain(cots))
+            moved = [w.launches - n for w, n in zip(G.COUNTED, before)]
+            assert sum(moved) == 4, (seg, moved)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["paper128", "quality"])
+def test_box_kernels_on_whole_pixels(cuda, name):
+    """Crop source coordinates that land on whole pixels and on the clamp's
+    bounds (found by a sweep through the plain chain on the card): the hat
+    weights bit for bit, the backward's taps at distance 0 and 1 as
+    autograd takes them."""
+    from spair_pytorch_tpu_torch.models.latents import geometry
+    from spair_pytorch_tpu_torch.ops.kernels import cell_glue as G
+    from spair_pytorch_tpu_torch.ops.stn import _source_coords_crop
+    cfg = glue_config(name, 1)
+    g = G.geometry_of(cfg, geometry(cfg))
+    n = 200001
+    logit = torch.linspace(-2.5, 2.5, n, device=cuda)
+    hb = torch.zeros((1, n, 8), device=cuda)
+    hb[0, :, 0], hb[0, :, 1] = logit, logit.flip(0)
+    hb[0, :, 2], hb[0, :, 3] = 0.37, -0.61
+    tw = torch.zeros((), device=cuda)
+    hw = torch.zeros((n, 2), dtype=torch.int64, device=cuda)
+    noise = torch.zeros((1, n, 4), device=cuda)
+    c = G._box_chain(hb, noise, tw, hw, g, 1)
+    xt, yt, xs, ys = c["z_where"][0, :, 0].unbind(-1)
+    hit = torch.zeros(n, dtype=torch.bool, device=cuda)
+    for t, sc, out, size in ((yt, ys, g.object_hw[0], g.image_hw[0]),
+                             (xt, xs, g.object_hw[1], g.image_hw[1])):
+        src = _source_coords_crop(t, sc, out, size)
+        hit |= ((src == src.floor()) & (src >= 0)
+                & (src <= size - 1)).any(-1)
+    rows = hb[:, hit][:, :64]
+    m = rows.shape[1]
+    assert m >= 8, "the sweep found too few whole pixels"
+    hw, noise = hw[:m], noise[:, :m]
+    for compute in (None, torch.bfloat16):
+        with torch.no_grad():
+            got = _flat_box(G.box_forward(rows, noise, tw, hw, g, 1, compute))
+            want = _flat_box(G.box_plain(rows, noise, tw, hw, g, 1, compute))
+            glue_equal(got, want)
+            cots = glue_cots(got, cuda, seed=5)
+            d = G.box_backward(rows, noise, tw, hw, g, 1, cots[:4], cots[4:8],
+                               *cots[8:])
+            d_plain = G.box_backward_plain(rows, noise, tw, hw, g, 1, cots[:4],
+                                           cots[4:8], *cots[8:])
+            glue_close((d,), (d_plain,))
+            assert bool(d_plain.any())
+
+
+def plain_glue(monkeypatch):
+    """cell_step's segments through their plain versions on CUDA tensors
+    too (the composition the kernels replace)."""
+    from spair_pytorch_tpu_torch.ops.kernels import cell_glue as G
+    for name in ("box_in", "box", "attr_z", "depth_obj", "pres"):
+        monkeypatch.setattr(G, f"{name}_forward", getattr(G, f"{name}_plain"))
+    monkeypatch.setattr(G, "box_in_backward",
+                        lambda dx, dfc, nf, shape:
+                        G.box_in_backward_plain(dx, dfc, nf))
+    for name in ("box", "attr_z", "depth_obj", "pres"):
+        monkeypatch.setattr(G, f"{name}_backward",
+                            getattr(G, f"{name}_backward_plain"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["paper128_b128", "quality_b32",
+                                  "stick_bfloat16"])
+def test_cell_step_through_the_kernels_equals_the_plain_glue(cuda, case,
+                                                             monkeypatch):
+    """The whole cell_step on a front: outputs bit for bit and every
+    gradient within GLUE_GRAD_BAR (bf16 products: a bf16 step) of the same
+    step through the plain glue; ten launches a call and its backward."""
+    from spair_pytorch_tpu_torch.models import latents as L
+    from spair_pytorch_tpu_torch.ops.kernels import cell_glue as G
+    name, b, k, s, dname = GLUE_CASES[case]
+    cfg = glue_config(name, s)
+    compute = None if dname == "float32" else torch.bfloat16
+    model = L.init_params(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    image = torch.rand((b,) + tuple(cfg.image_shape), generator=gen,
+                       device=cuda)
+    feat = torch.randn((b, k, cfg.n_backbone_features), generator=gen,
+                       device=cuda).requires_grad_()
+    ctx = torch.rand((b, k, cfg.context_dim), generator=gen,
+                     device=cuda).requires_grad_()
+    noise = {n: v.reshape(b, k, -1) for n, v in L.sample_noise(
+        gen, b, (1, k), cfg, cuda).items()}
+    hw = torch.randint(0, 11, (k, 2), generator=gen, device=cuda)
+    tw = torch.zeros((), device=cuda)
+    params = list(model.parameters())
+
+    def run():
+        out = L.cell_step(model, cfg, L.geometry(cfg), image, feat, ctx,
+                          noise, hw, tw, compute)
+        leaves = [out[key] for key in ("z_where", "z_attr", "z_depth",
+                                       "z_pres", "context_vec")] + \
+            [t for pair in out["posterior"].values() for t in pair]
+        cots = glue_cots(leaves, cuda, seed=9)
+        grads = torch.autograd.grad(leaves, params + [feat, ctx], cots,
+                                    allow_unused=True)
+        return [t.detach() for t in leaves], grads
+
+    before = [w.launches for w in G.COUNTED]
+    got, g_got = run()
+    assert [w.launches - n for w, n in zip(G.COUNTED, before)] == [1] * 10
+    with monkeypatch.context() as mp:
+        plain_glue(mp)
+        want, g_want = run()
+    glue_equal(got, want)
+    for a, w in zip(g_got, g_want):
+        assert (a is None) == (w is None)
+        if a is not None:
+            scale = float(w.abs().max())
+            bar = GLUE_GRAD_BAR if compute is None else 1e-2
+            assert float((a - w).abs().max()) <= bar * max(scale, 1e-30)
+
+
+@pytest.mark.gpu
+def test_captured_step_counts_ten_glue_launches_a_front(cuda):
+    """paper128's captured b128 step: every front's cell_step through the
+    ten kernels, counted over the replays (310 a step: 31 fronts)."""
+    from spair_pytorch_tpu_torch.ops.kernels import cell_glue as G
+    from spair_pytorch_tpu_torch.parallel import (create_train_state,
+                                                  make_train_step)
+    cfg, datagen = main_path()
+    state = create_train_state(cfg, device="cuda")
+    step = make_train_step(cfg, datagen=datagen, steps_per_call=2)
+    step(state)
+    before = [w.launches for w in G.COUNTED]
+    step(state)
+    torch.cuda.synchronize()
+    assert [w.launches - n for w, n in zip(G.COUNTED, before)] == [62] * 10
+
+
+@pytest.mark.gpu
+def test_glue_kernels_refuse_what_they_do_not_take(cuda):
+    """No fallback on CUDA tensors: a dtype, a training wheel or a shape the
+    kernels do not take raises."""
+    from spair_pytorch_tpu_torch.ops.kernels import cell_glue as G
+    cfg = glue_config("paper128", 1)
+    x = glue_inputs(cfg, 2, 6, 1, torch.float32, cuda, seed=1)
+    with pytest.raises(TypeError):
+        G.box_in_forward(x["feat"].double(), x["context"])
+    with pytest.raises(TypeError):
+        G.attr_z_forward(x["lat"].half(), x["noise_attr"], x["fc"],
+                         x["passthru"], x["box"])
+    with pytest.raises(ValueError):
+        G.pres_forward(x["po"], x["noise_pres"], torch.zeros(()), x["box"],
+                       x["attr"], x["depth"], False)
+    with pytest.raises(ValueError):
+        G.depth_obj_forward(x["dl"], x["pass2"], x["noise_depth"][:, :3],
+                            torch.zeros((), device=cuda), x["fc3"], x["box"],
+                            x["attr"])
